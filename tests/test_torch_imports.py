@@ -1,0 +1,85 @@
+"""The port stands alone: no module of ``repro_torch`` (nor
+``chip_smoke.py``) imports JAX or the reference package, and its entry
+points refuse to run without a card unless the CPU is asked for."""
+
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.argv = ["chip_smoke.py"]
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(SRC), str(ROOT)])
+    return env
+
+
+def test_port_imports_neither_jax_nor_reference():
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=_env(),
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert int(out[0]) >= 20      # every module of the slice was imported
+    assert out[1:] == ["[]"]
+
+
+def test_no_jax_or_reference_import_in_sources():
+    files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1]
+                assert not mod.startswith(("jax", "repro.")), (path, line)
+                assert mod not in ("repro", "jax"), (path, line)
+
+
+def test_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.core.fleet import run_fleet
+    from repro_torch.core.model import DIALModel
+    from repro_torch.pfs.engine import PFSSim
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PFSSim(2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DIALModel.load(str(tmp_path / "missing"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fleet(PFSSim(2, 2, device="cpu"), None)
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for where in (ROOT, tmp_path):
+        if where is tmp_path:
+            shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=where,
+                              capture_output=True, text=True, timeout=120,
+                              env={k: v for k, v in os.environ.items()
+                                   if k != "PYTHONPATH"})
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

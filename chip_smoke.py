@@ -8,17 +8,32 @@ Phases, in order; any failure exits non-zero:
 1. provenance: torch / CUDA versions, the card, ``nvidia-smi``;
 2. build: ``nvcc`` compiles every ``src/repro_torch/csrc/*.cu`` (in
    parallel) for sm_90a;
-3. kernel checks at the main path's shapes, each kernel against its
+3. the training path (paper SIV-A): ``collect`` of the 96 cells on a
+   96 x 96 PFSSim (9,216 interfaces) for 30 s (60 intervals),
+   ``train_models`` at the default GBDT shape (160 trees, depth 5,
+   exact float64) on 70% of the rows, and the held-out AUC through
+   ``DIALModel.predict_proba``; launch counters are zeroed just before
+   each and read just after.  Then the same training on the CPU (plain
+   versions) must give the same forests, and a 3 s collect on the card
+   the CPU's labels and rows;
+4. kernel checks at the main paths' shapes, each kernel against its
    plain PyTorch version: ``segment_sum`` bit-equal to ``np.bincount``
-   on the four mappings of the smoke topology, the forest kernels
-   within 1e-5 of the plain margins;
-4. the main path: ``run_fleet`` on a 256-client x 32-OST PFSSim
-   (8,192 interfaces) for 10 intervals of 100 ticks, then
-   ``DIALModel.predict_proba`` of the read model over every interface's
-   Θ; launch counters are zeroed just before each of the two and read
-   just after; then one interval's host-clock
-   breakdown and the device's busy share under ``torch.profiler``;
-5. the same tuned fleet at 8 x 4 on the card and on the CPU (plain
+   on the four mappings of the fleet topology, the forest kernels within
+   1e-5 of the plain margins, ``tree_histogram`` on the bin codes of a
+   paper-scale pair (100,000 read + 98,000 write rows resampled from the
+   collected ones) at the five level shapes of a depth-5 tree, float64
+   bit-equal and float32 within 1e-6 of the largest |cell|, two
+   launches bit-equal;
+5. the paper-scale fit: ``fit_forest_batch`` on that pair in both
+   precisions, timed and counted; the exact fit once more under
+   ``torch.profiler`` for the kernel's device time;
+6. the tuned fleet: ``run_fleet`` on a 256-client x 32-OST PFSSim
+   (8,192 interfaces) for 10 intervals of 100 ticks with the model
+   trained in phase 3 (or ``--model``), then ``DIALModel.predict_proba``
+   of the read model over every interface's Θ; counters zeroed just
+   before each of the two and read just after; then one interval's
+   host-clock breakdown and the device's busy share;
+7. the same tuned fleet at 8 x 4 on the card and on the CPU (plain
    versions): identical θ trajectories, counters within 1e-6.
 
 It prints one JSON line of kernel results, the ``nvidia-smi`` name and
@@ -26,10 +41,6 @@ power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits
 non-zero and prints no result.
-
-Without ``--model`` the forests are made from ``--seed`` at the default
-GBDT shape (160 trees, depth 5), with thresholds drawn from feature
-values of a warm-up interval so that descents take both branches.
 """
 
 from __future__ import annotations
@@ -49,9 +60,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32, outside tensor cores
-N_TREES, DEPTH = 160, 5        # the reference's default GBDTParams
+F64_OPS_PER_S = 34e12          # H100 SXM float64, outside tensor cores
+DEPTH = 5                      # the default GBDTParams' depth
 CLIENTS, OSTS = 256, 32        # 8,192 OSC interfaces
 SECONDS, INTERVAL = 5.0, 0.5   # 10 tuning intervals of 100 ticks
+COLLECT_SECONDS = 30.0         # 60 collection intervals (paper SIV-A)
+PAPER_ROWS = {"read": 100_000, "write": 98_000}   # paper SIV-A sample counts
+# (n_nodes, right children parked on the drop id) of a depth-5 tree's
+# five histogram launches: the root, then the left children of each level
+LEVELS = ((1, False), (1, True), (2, True), (4, True), (8, True))
 
 
 def log(*a):
@@ -135,17 +152,29 @@ def warmup_features(n_clients: int, n_osts: int, device):
     return feats, every
 
 
-def seeded_forest(rng, x: np.ndarray) -> dict:
-    """A depth-5, 160-tree forest over ``x``'s columns whose thresholds
-    are values the columns take, so descents go both ways."""
-    n_internal, n_leaves = 2 ** DEPTH - 1, 2 ** DEPTH
-    feature = rng.integers(0, x.shape[1], size=(N_TREES, n_internal))
-    rows = rng.integers(0, x.shape[0], size=(N_TREES, n_internal))
-    threshold = x[rows, feature].astype(np.float32)
-    leaf = (0.12 * rng.standard_normal((N_TREES, n_leaves))).astype(np.float32)
-    return dict(feature=feature.astype(np.int32), threshold=threshold,
-                leaf=leaf, base_score=0.1, depth=DEPTH,
-                n_features=x.shape[1])
+def auc(scores: np.ndarray, labels: np.ndarray) -> float:
+    """Area under the ROC curve (rank statistic; ties broken by order)."""
+    order = np.argsort(scores)
+    r = np.empty(len(scores))
+    r[order] = np.arange(1, len(scores) + 1)
+    pos = labels == 1
+    n_pos, n_neg = pos.sum(), (~pos).sum()
+    return float((r[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def assert_forests_match(a, b, what: str, tol: float = 1e-5) -> None:
+    """The reference trainers' parity bar: features equal, thresholds
+    and leaves within ``tol``, base score equal."""
+    fa, ta, la = a.numpy_arrays()
+    fb, tb, lb = b.numpy_arrays()
+    with np.errstate(invalid="ignore"):      # inf - inf
+        thr_ok = (np.abs(ta - tb) <= tol) | (np.isinf(ta) & np.isinf(tb))
+    if not (np.array_equal(fa, fb) and thr_ok.all()
+            and np.abs(la - lb).max() <= tol
+            and abs(a.base_score - b.base_score) <= tol):
+        raise AssertionError(f"{what}: forests differ (features equal: "
+                             f"{np.array_equal(fa, fb)}, max |leaf diff| "
+                             f"{np.abs(la - lb).max()})")
 
 
 # ---------------------------------------------------------------------- #
@@ -286,15 +315,285 @@ def counted(fn):
     return out, time.perf_counter() - t0, dict(LAUNCHES)
 
 
+def training_path(seed: int, dev):
+    """Phase 3: collect -> train -> held-out AUC on the card, each with
+    its launches counted, then the card held against the CPU."""
+    import torch
+    from repro_torch.core.dataset import CollectConfig, collect, train_models
+    from repro_torch.pfs.state import READ, WRITE
+
+    cfg = CollectConfig(seconds=COLLECT_SECONDS, reps=1, seed=seed)
+    n_intervals = int(round(cfg.seconds / cfg.interval))
+    data, t_collect, collect_counts = counted(lambda: collect(cfg,
+                                                              device=dev))
+    for name, (X, y) in data.items():
+        if len(X) == 0 or len(set(y.tolist())) != 2 \
+                or not np.isfinite(X).all():
+            raise AssertionError(f"collect: {name} rows malformed "
+                                 f"({len(X)} rows)")
+    if collect_counts.get("segment_sum", 0) <= 0:
+        raise AssertionError("collect never launched segment_sum")
+    log(f"collect: 96 cells on 9,216 interfaces, {n_intervals} intervals "
+        f"in {t_collect:.3f} s ({t_collect / n_intervals * 1e3:.2f} "
+        f"ms/interval): {len(data['read'][0])} read rows (positive "
+        f"{data['read'][1].mean():.3f}), {len(data['write'][0])} write "
+        f"rows (positive {data['write'][1].mean():.3f}); launches "
+        + ", ".join(f"{k}={v}" for k, v in collect_counts.items()))
+
+    rng = np.random.default_rng(seed)
+    train, test = {}, {}
+    for name, (X, y) in data.items():
+        perm = rng.permutation(len(X))
+        cut = int(0.7 * len(X))
+        train[name] = (X[perm[:cut]], y[perm[:cut]])
+        test[name] = (X[perm[cut:]], y[perm[cut:]])
+    model, t_train, train_counts = counted(lambda: train_models(train,
+                                                                device=dev))
+    if train_counts.get("tree_histogram", 0) != 160 * DEPTH:
+        raise AssertionError(f"train_models launched tree_histogram "
+                             f"{train_counts.get('tree_histogram', 0)} "
+                             f"times, not 160 x {DEPTH}")
+    xs = {op: torch.as_tensor(test[name][0], device=dev)
+          for op, name in ((READ, "read"), (WRITE, "write"))}
+    probs, _, auc_counts = counted(lambda: {
+        op: model.predict_proba(op, x) for op, x in xs.items()})
+    if auc_counts.get("forest_margin", 0) <= 0:
+        raise AssertionError("predict_proba never launched forest_margin")
+    aucs = {}
+    for op, name in ((READ, "read"), (WRITE, "write")):
+        p = probs[op].cpu().numpy()
+        if not np.isfinite(p).all():
+            raise AssertionError(f"{name} model: probabilities not finite")
+        aucs[name] = auc(p, test[name][1])
+        if not aucs[name] > 0.5:
+            raise AssertionError(f"{name} model: held-out AUC {aucs[name]} "
+                                 "no better than chance")
+    log(f"train_models: {len(train['read'][0])} read + "
+        f"{len(train['write'][0])} write rows, 160 trees depth {DEPTH} "
+        f"exact, in {t_train:.3f} s; launches "
+        + ", ".join(f"{k}={v}" for k, v in train_counts.items())
+        + f"; held-out AUC read {aucs['read']:.4f} "
+        f"({len(test['read'][0])} rows), write {aucs['write']:.4f} "
+        f"({len(test['write'][0])} rows)")
+
+    # the card against the CPU's plain versions: the same training, and
+    # a short collect
+    cpu_model = train_models(train, device="cpu")
+    for op, name in ((READ, "read"), (WRITE, "write")):
+        assert_forests_match(model.forest(op), cpu_model.forest(op),
+                             f"train_models {name}, card vs CPU")
+        q = cpu_model.predict_proba(op, xs[op].cpu()).numpy()
+        err = float(np.abs(probs[op].cpu().numpy() - q).max())
+        if not err <= 1e-5:
+            raise AssertionError(f"{name} model: card vs CPU probabilities "
+                                 f"differ by {err}")
+    short = CollectConfig(seconds=3.0, reps=1, seed=seed)
+    on_card, on_cpu = collect(short, device=dev), collect(short,
+                                                          device="cpu")
+    for name in ("read", "write"):
+        (Xa, ya), (Xb, yb) = on_card[name], on_cpu[name]
+        if Xa.shape != Xb.shape or not np.array_equal(ya, yb) \
+                or not np.allclose(Xa, Xb, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"collect {name}: card and CPU differ")
+    log("reference check: train_models on the card == CPU plain versions "
+        "(features equal, thresholds/leaves within 1e-5); 3 s collect on "
+        f"the card == CPU ({len(on_cpu['read'][0])} + "
+        f"{len(on_cpu['write'][0])} rows, labels identical, rows within "
+        "1e-5)")
+    info = dict(collect_s=t_collect, collect_intervals=n_intervals,
+                collect_counts=collect_counts, train_s=t_train, auc=aucs,
+                train_counts=train_counts, auc_counts=auc_counts)
+    return model, data, info
+
+
+def paper_pair(data: dict, rng) -> list:
+    """The paper's sample counts, rows drawn with replacement from the
+    collected ones: ``[(X_read, y_read), (X_write, y_write)]``."""
+    out = []
+    for name, rows in PAPER_ROWS.items():
+        X, y = data[name]
+        idx = rng.integers(0, len(X), size=rows)
+        out.append((X[idx], y[idx]))
+    return out
+
+
+def check_tree_histogram(pair: list, rng, dev) -> dict:
+    """``tree_histogram`` on the paper-scale pair's bin codes (binned and
+    padded as the trainer does) at the five level shapes, both dtypes."""
+    import torch
+    from repro_torch.core.gbdt import GBDTParams
+    from repro_torch.kernels.tree_histogram.kernel import tree_histogram_cuda
+    from repro_torch.kernels.tree_histogram.ref import tree_histogram_ref
+    from repro_torch.learn.boost import prepare_batch, training_index
+
+    p = GBDTParams()
+    nb = p.n_bins
+    _, padded = prepare_batch(pair, [p] * len(pair))
+    stack = lambda attr: torch.as_tensor(
+        np.stack([getattr(d, attr) for d in padded]), device=dev)
+    index, _ = training_index(stack("Xb"), stack("valid") > 0,
+                              torch.full((len(pair),), p.min_child_hess,
+                                         device=dev), nb)
+    bins_cpu, walk_cpu = index.bins.cpu(), index.walk.cpu()
+    b, n, f = index.bins.shape
+    n_walked = int(index.walk.sum())        # (forest, feature) pairs
+    longest = int((index.bnd[..., 1:] - index.bnd[..., :-1]).max())
+    log(f"tree_histogram index: {n_walked} of {b * f} (forest, feature) "
+        f"pairs walked; longest segment {longest} of {n} rows")
+    cases = []
+    for dtype, rate in ((torch.float64, F64_OPS_PER_S),
+                        (torch.float32, F32_OPS_PER_S)):
+        size = 8 if dtype == torch.float64 else 4
+        for n_nodes, drop in LEVELS:
+            values = rng.standard_normal((b, 2, n)) \
+                * np.array([1.0, 0.25])[None, :, None]
+            node = rng.integers(0, n_nodes, size=(b, n))
+            if drop:      # right children parked on the drop id
+                node = np.where(rng.random((b, n)) < 0.5, node, n_nodes)
+            v = torch.as_tensor(values, dtype=dtype, device=dev)
+            nd = torch.as_tensor(node, dtype=torch.int32, device=dev)
+            run = lambda: tree_histogram_cuda(v, index.perm, index.bnd, nd,
+                                              n_nodes)
+            got = run()
+            if not torch.equal(got, run()):
+                raise AssertionError("tree_histogram: two launches differ")
+            want = tree_histogram_ref(v.cpu(), bins_cpu, nd.cpu(), n_nodes,
+                                      nb, walk_cpu)
+            err = float((got.cpu() - want).abs().max())
+            scale = float(want.abs().max())
+            if dtype == torch.float64:
+                if not torch.equal(got.cpu().view(torch.int64),
+                                   want.view(torch.int64)):
+                    raise AssertionError(f"tree_histogram f64 n_nodes="
+                                         f"{n_nodes}: not bit-equal to the "
+                                         f"plain version ({err})")
+            elif not err <= 1e-6 * scale:
+                raise AssertionError(f"tree_histogram f32 n_nodes={n_nodes}: "
+                                     f"{err} over 1e-6 x {scale}")
+            plain = lambda: tree_histogram_ref(v, index.bins, nd, n_nodes,
+                                               nb, index.walk)
+            err_card = float((got - plain()).abs().max())
+            # one index_add_ of every (sample, walked feature) pair's two
+            # channels onto precomputed flat cell ids (ids and rows not
+            # timed)
+            keep = (nd >= 0) & (nd < n_nodes)
+            pairs = index.walk[:, None, :].expand(b, n, f)
+            flat = (((torch.arange(b, device=dev)[:, None, None] * n_nodes
+                      + torch.where(keep, nd, 0)[:, :, None].long()) * f
+                     + torch.arange(f, device=dev)) * nb
+                    + index.bins.long())[pairs]
+            src = torch.where(keep[:, None], v, 0.0).transpose(1, 2)[
+                :, :, None, :].expand(b, n, f, 2)[pairs]
+            zeros = torch.zeros((b * n_nodes * f * nb, 2), dtype=dtype,
+                                device=dev)
+            # the streams the kernel reads: values, node ids, the walked
+            # features' order and every bin start; it writes every cell
+            nbytes = (b * 2 * n * size + b * n * 4 + n_walked * n * 4
+                      + b * f * (nb + 1) * 4 + b * 2 * n_nodes * f * nb * size)
+            n_ops = int((keep[:, :, None] & pairs).sum()) * 2
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / rate
+            case = dict(
+                dtype=str(dtype).split(".")[-1], n_nodes=n_nodes, drop=drop,
+                ms=time_ms(run, 20),
+                plain_ms=time_ms(plain, 5),
+                library_ms=time_ms(lambda: zeros.index_add(0, flat, src), 5),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=err, max_abs_err_vs_card_plain=err_card,
+                max_abs_cell=scale)
+            cases.append(case)
+            log(f"tree_histogram[{case['dtype']}, {n_nodes} node(s)"
+                f"{', drop id' if drop else ''}] B={b} n={n} F={f} "
+                f"NB={nb}: {'bit-equal to' if size == 8 else f'{err:.3e} from'}"
+                f" the plain version (CPU), {err_card:.3e} from it on the "
+                f"card; kernel {case['ms']:.4f} ms, plain "
+                f"{case['plain_ms']:.4f} ms, index_add {case['library_ms']:.4f}"
+                f" ms, bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
+            del flat, src, zeros
+    tree = [c for c in cases if c["dtype"] == "float64"]
+    mean = lambda k: sum(c[k] for c in tree) / len(tree)
+    return dict(
+        name="tree_histogram", route="cuda",
+        source="src/repro_torch/csrc/tree_histogram.cu",
+        replaces="src/repro/kernels/tree_histogram/kernel.py:32",
+        max_abs_err=max(c["max_abs_err"] for c in tree),
+        tolerance="float64 bit-equal to the plain version (CPU); float32 "
+        "within 1e-6 of the largest |cell|; two launches bit-equal",
+        ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in tree)
+        else "operations",
+        library_ms=mean("library_ms"),
+        shape=f"float64, mean of a depth-5 tree's 5 launches (1, 1, 2, 4, 8 "
+        f"nodes), B={b} n={n} F={f} NB={nb}, {n_walked} of {b * f} "
+        f"features walked, longest segment {longest} rows", cases=cases)
+
+
+def paper_fit(pair: list, dev) -> dict:
+    """Phase 5: the read/write pair at the paper's sample counts, both
+    precisions, timed (host binning included) and counted; the exact fit
+    once more under the profiler for the kernel's device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.gbdt import GBDTParams
+    from repro_torch.learn.boost import fit_forest_batch
+
+    rows = [len(X) for X, _ in pair]
+    out = {}
+    for precision in ("exact", "fast"):
+        forests, secs, counts = counted(lambda: fit_forest_batch(
+            pair, GBDTParams(), precision=precision, device=dev))
+        launches = counts.get("tree_histogram", 0)
+        if launches != 160 * DEPTH:
+            raise AssertionError(f"paper-scale {precision} fit launched "
+                                 f"tree_histogram {launches} times")
+        for f in forests:
+            if not bool(torch.isfinite(f.leaf).all()):
+                raise AssertionError(f"paper-scale {precision} fit: leaves "
+                                     "not finite")
+        out[precision] = dict(rows=rows, seconds=secs, launches=launches,
+                              wall_ms_per_level=secs * 1e3 / launches)
+        log(f"paper-scale fit [{precision}]: {rows[0]} read + {rows[1]} "
+            f"write rows (resampled), {secs:.3f} s, tree_histogram "
+            f"launches {launches}, {secs * 1e3 / launches:.3f} ms of wall "
+            "time per level")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fit_forest_batch(pair, GBDTParams(), precision="exact", device=dev)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [a for a in prof.key_averages()
+              if a.device_type == DeviceType.CUDA]
+    hist = [a for a in events if "tree_histogram_kernel" in a.key]
+    if hist:
+        busy = sum(a.device_time_total for a in events) / 1e3
+        k_ms = sum(a.device_time_total for a in hist) / 1e3
+        k_n = sum(a.count for a in hist)
+        out["exact"].update(kernel_device_ms=k_ms, kernel_launches=k_n,
+                            device_busy_ms=busy, profiled_wall_ms=wall_ms)
+        log(f"paper-scale fit [exact] profiled: tree_histogram {k_n} "
+            f"launches, {k_ms:.2f} ms on the device ({k_ms / k_n:.4f} ms "
+            f"each); device busy {busy:.2f} ms of this profiled fit's "
+            f"{wall_ms:.2f} ms wall time ({busy / wall_ms:.1%}; the "
+            "profiler's host cost is in that wall time); across two runs, "
+            f"this busy time over the unprofiled fit's "
+            f"{out['exact']['seconds'] * 1e3:.2f} ms is "
+            f"{busy / (out['exact']['seconds'] * 1e3):.1%}")
+    else:
+        log("paper-scale fit: kernel device time not measured (the "
+            "profiler recorded no tree_histogram kernel)")
+    return out
+
+
 def run_phases(seed: int, model_prefix, dev) -> list:
-    """Phases 3-5 on device ``dev``; returns the kernels' result dicts."""
+    """Phases 3-7 on device ``dev``; returns the kernels' result dicts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.convert import model_from_numpy
+    from repro_torch.convert import forest_to_numpy, model_from_numpy
     from repro_torch.core.fleet import run_fleet
-    from repro_torch.core.metrics import feature_dim
     from repro_torch.core.model import DIALModel
     from repro_torch.kernels.gbdt_forest.ops import pack_fleet_rows, \
         pair_forests
@@ -303,25 +602,14 @@ def run_phases(seed: int, model_prefix, dev) -> list:
     from repro_torch.pfs.workloads import table_from_sim
 
     rng = np.random.default_rng(seed)
-    # model: an artifact, or forests from the seed over warm-up features
-    feats, every = warmup_features(CLIENTS, OSTS, dev)
+    # 3. the training path; its model tunes the fleet unless --model
+    model, data, trained = training_path(seed, dev)
     if model_prefix:
         model = DIALModel.load(model_prefix, device=dev)
-        model_np = {op: dict(zip(("feature", "threshold", "leaf"),
-                                 model.forest(op).numpy_arrays()),
-                             base_score=model.forest(op).base_score,
-                             depth=model.forest(op).depth,
-                             n_features=model.forest(op).n_features)
-                    for op in (READ, WRITE)}
-    else:
-        model_np = {op: seeded_forest(rng, every[op].cpu().numpy())
-                    for op in (READ, WRITE)}
-        if any(model_np[op]["n_features"] != feature_dim(op)
-               for op in (READ, WRITE)):
-            raise AssertionError("warm-up features have the wrong width")
-        model = model_from_numpy(model_np[READ], model_np[WRITE], device=dev)
+    model_np = {op: forest_to_numpy(model.forest(op)) for op in (READ, WRITE)}
+    feats, every = warmup_features(CLIENTS, OSTS, dev)
 
-    # 3. kernel checks at the main path's shapes
+    # 4. kernel checks at the main paths' shapes
     sim = build_sim(CLIENTS, OSTS, dev)
     table, _ = table_from_sim(sim)
     kernels = [check_segment_sum(
@@ -344,9 +632,17 @@ def run_phases(seed: int, model_prefix, dev) -> list:
         rf.threshold[None], rf.leaf[None],
         torch.tensor([rf.base_score], dtype=torch.float32, device=dev)))
     del x, op
+    pair = paper_pair(data, rng)
+    kernels.append(check_tree_histogram(pair, rng, dev))
     torch.cuda.empty_cache()
 
-    # 4. the main path, launches counted only here: the tuned fleet
+    # 5. the paper-scale fit
+    kernels[-1]["paper_fit"] = paper_fit(pair, dev)
+    kernels[-1]["training"] = {k: trained[k] for k in (
+        "collect_s", "collect_intervals", "train_s", "auc")}
+    torch.cuda.empty_cache()
+
+    # 6. the main path, launches counted only here: the tuned fleet
     # (segment_sum, paired_forest_margin), then the read model scoring
     # every interface's Θ (forest_margin), each counted on its own
     n_intervals = int(round(SECONDS / INTERVAL))
@@ -364,7 +660,8 @@ def run_phases(seed: int, model_prefix, dev) -> list:
         raise AssertionError("main path: read-model scores malformed")
     paths = {"segment_sum": ("run_fleet", counts),
              "paired_forest_margin": ("run_fleet", counts),
-             "forest_margin": ("DIALModel.predict_proba", proba_counts)}
+             "forest_margin": ("DIALModel.predict_proba", proba_counts),
+             "tree_histogram": ("train_models", trained["train_counts"])}
     for k in kernels:
         k["path"], path_counts = paths[k["name"]]
         k["launches"] = path_counts.get(k["name"], 0)
@@ -414,7 +711,7 @@ def run_phases(seed: int, model_prefix, dev) -> list:
         log("device: busy share not measured (the profiler recorded no "
             "device activity)")
 
-    # 5. the card against the CPU's plain versions, small
+    # 7. the card against the CPU's plain versions, small
     model_cpu = model_from_numpy(model_np[READ], model_np[WRITE],
                                  device="cpu")
     runs = {}

@@ -1,9 +1,11 @@
 """Carry the reference's parameters and state across as numpy arrays.
 
 The port has no neural weights: its parameters are the GBDT forests,
-the simulator state and the frozen workload table.  Each function takes
-plain numpy arrays (for example ``{f: getattr(obj, f)}`` of a ``repro``
-object) and returns the port's object with its tensors on ``device``.
+the simulator state and the frozen workload table.  Each ``*_from_numpy``
+function takes plain numpy arrays (for example ``{f: getattr(obj, f)}``
+of a ``repro`` object) and returns the port's object with its tensors on
+``device``; :func:`forest_to_numpy` carries a forest the port trained
+back the other way.
 Float fields stay float64, integer fields int64, masks bool, exactly as
 the reference holds them.
 """
@@ -40,6 +42,15 @@ def forest_from_numpy(feature, threshold, leaf, base_score, depth,
         leaf=torch.as_tensor(np.asarray(leaf, dtype=np.float32), device=dev),
         base_score=float(base_score), depth=int(depth),
         n_features=int(n_features))
+
+
+def forest_to_numpy(forest) -> dict:
+    """A port forest as the reference's ``DenseForest`` field dict (host
+    numpy), e.g. ``repro.core.gbdt.DenseForest(**forest_to_numpy(f))``."""
+    feature, threshold, leaf = forest.numpy_arrays()
+    return dict(feature=feature, threshold=threshold, leaf=leaf,
+                base_score=float(forest.base_score), depth=int(forest.depth),
+                n_features=int(forest.n_features))
 
 
 def model_from_numpy(read: dict, write: dict, k: int = 1, device=None):

@@ -9,7 +9,12 @@ A forest is a stack of complete binary trees of depth D (the layout of
 
 Margins are float32 sums of the reached leaves plus the base score, as
 the reference's jax/pallas backends compute them (its numpy traversal
-sums in float64 and agrees to rounding).  Training is not ported.
+sums in float64 and agrees to rounding).
+
+Training (:mod:`repro_torch.learn.boost`) bins through
+:func:`quantile_edges` / :func:`bin_codes`, host numpy copied from the
+reference's ``repro/core/gbdt.py``: the port reproduces the numpy
+trainer's splits only because both bin through the exact same code.
 """
 
 from __future__ import annotations
@@ -20,6 +25,44 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.gbdt_forest import ops as kops
+
+# Split gains are rounded to this many decimals before the argmax so that
+# mathematically equal candidates stay tied under any summation order;
+# ties then break on (feature, bin) order, as in the reference trainers.
+GAIN_DECIMALS = 9
+
+
+def quantile_edges(X: np.ndarray, n_bins: int) -> list[np.ndarray]:
+    """Per-feature quantile bin edges (deduplicated, possibly empty)."""
+    X = np.asarray(X, dtype=np.float64)
+    qs_grid = np.linspace(0, 1, n_bins + 1)[1:-1]
+    return [np.unique(np.quantile(X[:, f], qs_grid))
+            for f in range(X.shape[1])]
+
+
+def bin_codes(X: np.ndarray, edges: list[np.ndarray]) -> np.ndarray:
+    """Integer bin codes: ``code > b  <=>  x > edges[f][b]`` (side-right
+    searchsorted, the raw-threshold-compatible binning semantics)."""
+    X = np.asarray(X, dtype=np.float64)
+    Xb = np.empty(X.shape, dtype=np.int16)
+    for f, e in enumerate(edges):
+        Xb[:, f] = np.searchsorted(e, X[:, f], side="right")
+    return Xb
+
+
+@dataclasses.dataclass
+class GBDTParams:
+    """Training hyperparameters (the reference's defaults)."""
+
+    n_trees: int = 160
+    max_depth: int = 5
+    learning_rate: float = 0.1
+    reg_lambda: float = 1.0
+    min_gain: float = 1e-4
+    min_child_hess: float = 1.0
+    n_bins: int = 48
+    subsample: float = 0.85
+    seed: int = 0
 
 
 @dataclasses.dataclass

@@ -13,6 +13,7 @@ import dataclasses
 import json
 import os
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -22,12 +23,29 @@ from repro_torch.kernels.gbdt_forest import ops as kops
 from repro_torch.pfs.state import READ
 
 
+def dataset_fingerprint(data: dict) -> dict:
+    """Row counts and a content hash of a ``{'read': (X, y), 'write':
+    (X, y)}`` training dict (the reference's), persisted with trained
+    artifacts so evaluations can refuse a model trained on other data."""
+    import hashlib
+
+    h = hashlib.sha256()
+    counts = {}
+    for op_name in ("read", "write"):
+        X, y = data[op_name]
+        counts[op_name] = int(len(X))
+        h.update(np.ascontiguousarray(np.asarray(X, dtype=np.float32)))
+        h.update(np.ascontiguousarray(np.asarray(y, dtype=np.float64)))
+    return {"rows": counts, "sha256": h.hexdigest()[:16]}
+
+
 @dataclasses.dataclass
 class DIALModel:
     read_forest: DenseForest
     write_forest: DenseForest
     space: ConfigSpace = SPACE
     k: int = 1  # history length (paper uses k=1)
+    # provenance: trainer + dataset fingerprint, persisted by save/load
     train_meta: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
@@ -35,6 +53,19 @@ class DIALModel:
             raise ValueError("DIALModel: read and write forests on "
                              f"{self.read_forest.device} and "
                              f"{self.write_forest.device}")
+        self._fleet_predictor = None
+
+    def update_forests(self, read_forest: DenseForest | None = None,
+                       write_forest: DenseForest | None = None) -> None:
+        """Swap retrained forests in place (the online-refit path).
+
+        Drops the cached fleet predictor, which holds the old forests'
+        paired tensors, so the next score is made with the new trees.
+        """
+        if read_forest is not None:
+            self.read_forest = read_forest
+        if write_forest is not None:
+            self.write_forest = write_forest
         self._fleet_predictor = None
 
     @property

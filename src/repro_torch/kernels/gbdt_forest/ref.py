@@ -2,8 +2,10 @@
 
 The same static ``depth``-step descent as the kernel, written as whole
 ``(N, T)`` tensor gathers (as ``repro/kernels/gbdt_forest/ref.py`` does
-in jnp).  Float32 throughout; the tree sum is ``torch.sum``'s order, so
-it agrees with the kernel's sequential sum to rounding, not bitwise.
+in jnp).  Float32 throughout.  The reached leaves are summed tree by
+tree in ascending order, then the base is added -- the kernel's order --
+so the two agree however large the margins grow (a float32 sum of 160
+leaves in another order can differ by many ulps of the margin).
 """
 
 from __future__ import annotations
@@ -45,7 +47,10 @@ def paired_forest_margin_ref(x, op, feature, threshold, leaf, base,
     leaf_pos = (forest[:, None] * (t * n_leaves) + tree * n_leaves
                 + (idx - n_internal))
     vals = leaf.reshape(-1)[leaf_pos]
-    return vals.sum(dim=1) + base[forest]
+    acc = torch.zeros(n, dtype=torch.float32, device=dev)
+    for i in range(t):
+        acc = acc + vals[:, i]
+    return acc + base[forest]
 
 
 def forest_margin_ref(x, feature, threshold, leaf, base_score: float,

@@ -8,8 +8,11 @@ package), so it also runs where only the port is installed:
 
 Each kernel is held against its plain PyTorch version on the CPU:
 ``segment_sum`` bit for bit (and against ``np.bincount``), the forest
-margins to 1e-5 (float32, another summation order), and the tuned
-fleet's θ trajectory exactly, counters to 1e-6.
+margins to 1e-5 (float32, another summation order), ``tree_histogram``
+bit for bit in float64 and within 1e-6 of the largest |cell| in float32
+(two launches bit-equal in both), the tuned fleet's θ trajectory
+exactly, counters to 1e-6, and an exact GBDT fit on the card equal to
+the CPU fit (features equal, thresholds and leaves within 1e-5).
 """
 
 import numpy as np
@@ -19,11 +22,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.convert import model_from_numpy  # noqa: E402
 from repro_torch.core.fleet import run_fleet  # noqa: E402
+from repro_torch.core.gbdt import GBDTParams  # noqa: E402
 from repro_torch.core.metrics import feature_dim  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.gbdt_forest import ops  # noqa: E402
 from repro_torch.kernels.gbdt_forest.kernel import forest_margin_cuda  # noqa: E402
 from repro_torch.kernels.segment_reduce.ops import SegmentMap, segment_sum  # noqa: E402
+from repro_torch.kernels.tree_histogram.kernel import tree_histogram_cuda  # noqa: E402
+from repro_torch.kernels.tree_histogram.ops import BinIndex, tree_histogram  # noqa: E402
+from repro_torch.learn.boost import fit_forest  # noqa: E402
 from repro_torch.pfs import workloads as W  # noqa: E402
 from repro_torch.pfs.engine import PFSSim  # noqa: E402
 from repro_torch.pfs.state import READ, WRITE  # noqa: E402
@@ -175,3 +182,99 @@ def test_fleet_on_card_matches_cpu(cuda):
         a = getattr(sim_c.state, f).numpy()
         b = getattr(sim_d.state, f).cpu().numpy()
         assert np.max(np.abs(a - b) / np.maximum(np.abs(a), 1.0)) <= 1e-6, f
+
+
+def _histogram_inputs(rng, b, n, f, n_bins, n_nodes, dtype):
+    values = rng.normal(size=(b, 2, n)) * 10.0 ** rng.uniform(-3, 3, (b, 1, n))
+    # skewed codes: many samples share the low bins, as knob columns do
+    bins = np.minimum(rng.geometric(0.15, size=(b, n, f)) - 1, n_bins - 1)
+    node = rng.integers(0, n_nodes + 1, size=(b, n))   # n_nodes = drop id
+    return (torch.as_tensor(values, dtype=dtype),
+            torch.as_tensor(bins, dtype=torch.int32),
+            torch.as_tensor(node, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_nodes", [1, 2, 8, 20])
+def test_tree_histogram_kernel_matches_plain(cuda, dtype, n_nodes):
+    rng = np.random.default_rng(n_nodes)
+    values, bins, node = _histogram_inputs(rng, 2, 6000, 36, 48, n_nodes,
+                                           dtype)
+    plain = tree_histogram(values, BinIndex.build(bins, 48), node, n_nodes)
+    index = BinIndex.build(bins.to(cuda), 48)
+    n0 = LAUNCHES["tree_histogram"]
+    first = tree_histogram(values.to(cuda), index, node.to(cuda), n_nodes)
+    again = tree_histogram(values.to(cuda), index, node.to(cuda), n_nodes)
+    assert LAUNCHES["tree_histogram"] == n0 + 2
+    assert torch.equal(first, again)                  # deterministic bits
+    got = first.cpu()
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(got.numpy().view(np.int64),
+                                      plain.numpy().view(np.int64))
+    else:
+        scale = float(plain.abs().max())
+        assert float((got - plain).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tree_histogram_kernel_skips_unwalked_features(cuda, dtype):
+    """Features outside ``walk`` have empty segments on the card and
+    zero cells, as in the plain version."""
+    values, bins, node = _histogram_inputs(np.random.default_rng(7), 2,
+                                           6000, 36, 48, 8, dtype)
+    walk = torch.rand((2, 36), generator=torch.Generator().manual_seed(7)) \
+        < 0.5
+    plain = tree_histogram(values, BinIndex.build(bins, 48, walk), node, 8)
+    got = tree_histogram(values.to(cuda),
+                         BinIndex.build(bins.to(cuda), 48, walk.to(cuda)),
+                         node.to(cuda), 8).cpu()
+    for b in range(2):
+        assert not got[b][:, :, ~walk[b]].any()
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(got.numpy().view(np.int64),
+                                      plain.numpy().view(np.int64))
+    else:
+        scale = float(plain.abs().max())
+        assert float((got - plain).abs().max()) <= 1e-6 * scale
+
+
+def test_tree_histogram_kernel_checks_inputs(cuda):
+    values, bins, node = _histogram_inputs(np.random.default_rng(0), 1, 64,
+                                           3, 8, 2, torch.float64)
+    index = BinIndex.build(bins.to(cuda), 8)
+    v, nd = values.to(cuda), node.to(cuda)
+    with pytest.raises(ValueError, match="float64 or float32"):
+        tree_histogram_cuda(v.half(), index.perm, index.bnd, nd, 2)
+    with pytest.raises(ValueError, match="node must be a contiguous"):
+        tree_histogram_cuda(v, index.perm, index.bnd, nd.long(), 2)
+    with pytest.raises(ValueError, match="channels"):
+        tree_histogram_cuda(v.repeat(1, 3, 1), index.perm, index.bnd, nd, 2)
+    with pytest.raises(ValueError, match="values must be"):
+        tree_histogram_cuda(v[0], index.perm, index.bnd, nd, 2)
+
+
+def test_exact_fit_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2500, 10))
+    y = ((X[:, 0] > 0.3) & (X[:, 1] < 0.5) | (X[:, 2] * X[:, 3] > 1.0)
+         ).astype(float)
+    p = GBDTParams(n_trees=25, max_depth=5)
+    cpu = fit_forest(X, y, p, device="cpu")
+    LAUNCHES.clear()
+    dev = fit_forest(X, y, p, device=cuda)
+    assert LAUNCHES["tree_histogram"] == 25 * 5
+    np.testing.assert_array_equal(dev.feature.cpu().numpy(),
+                                  cpu.feature.numpy())
+    a, b = dev.threshold.cpu().numpy(), cpu.threshold.numpy()
+    with np.errstate(invalid="ignore"):      # inf - inf
+        assert ((np.abs(a - b) <= 1e-5) | (np.isinf(a) & np.isinf(b))).all()
+    np.testing.assert_allclose(dev.leaf.cpu().numpy(), cpu.leaf.numpy(),
+                               atol=1e-5)
+    assert dev.base_score == cpu.base_score
+
+
+def test_gain_rounding_on_card_matches_numpy(cuda):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(10 ** 6) * 10.0 ** rng.uniform(-3, 4, 10 ** 6)
+    got = torch.round(torch.as_tensor(x, device=cuda), decimals=9)
+    np.testing.assert_array_equal(got.cpu().numpy(), np.round(x, 9))

@@ -41,8 +41,22 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 20      # every module of the slice was imported
+    assert int(out[0]) >= 30      # every module of both slices was imported
     assert out[1:] == ["[]"]
+
+
+def test_training_slice_modules_are_probed():
+    """The walk above reaches the training slice's modules."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.core.dataset", "repro_torch.learn.boost",
+            "repro_torch.learn.online",
+            "repro_torch.kernels.tree_histogram.kernel",
+            "repro_torch.kernels.tree_histogram.ops",
+            "repro_torch.kernels.tree_histogram.ref"} <= names
 
 
 def test_no_jax_or_reference_import_in_sources():
@@ -69,6 +83,17 @@ def test_entry_points_raise_without_cuda(tmp_path):
         DIALModel.load(str(tmp_path / "missing"))
     with pytest.raises(RuntimeError, match="CUDA"):
         run_fleet(PFSSim(2, 2, device="cpu"), None)
+
+    import numpy as np
+    from repro_torch.core.dataset import collect, train_models
+    from repro_torch.learn.boost import fit_forest
+    x, y = np.zeros((4, 2)), np.array([0.0, 1.0, 0.0, 1.0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        collect()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit_forest(x, y)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_models({"read": (x, y), "write": (x, y)})
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

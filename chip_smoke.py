@@ -34,7 +34,19 @@ Phases, in order; any failure exits non-zero:
    before each of the two and read just after; then one interval's
    host-clock breakdown and the device's busy share;
 7. the same tuned fleet at 8 x 4 on the card and on the CPU (plain
-   versions): identical θ trajectories, counters within 1e-6.
+   versions): identical θ trajectories, counters within 1e-6;
+8. LM serving: ``serve`` of recurrentgemma-9b, falcon-mamba-7b and
+   gemma2-2b at their full published configs (width and depth, bf16,
+   random weights from the seed), 4 prompts of 3,072 tokens and 32
+   greedy tokens each, one model at a time, counters zeroed just before
+   each and read just after (flash_attention, rglru_scan and
+   selective_scan must each launch where the model has the layer),
+   then one prefill and 8 decode steps of it once more under the
+   profiler for the device's time by kernel class;
+   then each kernel against its plain version at one layer's real
+   shapes, timed beside SDPA for attention; then the smoke configs in
+   float32 on the card and on the CPU (plain versions), the same
+   weights: identical greedy tokens, logits within 1e-4.
 
 It prints one JSON line of kernel results, the ``nvidia-smi`` name and
 power limit, and as its last line
@@ -737,6 +749,398 @@ def run_phases(seed: int, model_prefix, dev) -> list:
     return kernels
 
 
+# ---------------------------------------------------------------------- #
+# phase 8: LM serving
+# ---------------------------------------------------------------------- #
+SERVE_ARCHS = ("recurrentgemma-9b", "falcon-mamba-7b", "gemma2-2b")
+SERVE = dict(batch=4, prompt_len=3072, gen_tokens=32)
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+# each new kernel: the layer kinds that run it
+SERVE_KERNELS = {"flash_attention": {"attn", "attn_local"},
+                 "rglru_scan": {"recurrent"}, "selective_scan": {"mamba"}}
+
+
+def serving_path(seed: int, dev) -> dict:
+    """Full-config ``serve`` of each family, launches counted per run."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+
+    runs = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, secs, counts = counted(lambda: serve(
+            arch, smoke=False, seed=seed, device=dev, **SERVE))
+        peak = torch.cuda.max_memory_allocated(dev)
+        b, n = SERVE["batch"], SERVE["gen_tokens"]
+        toks = out["tokens"]
+        if toks.shape != (b, n) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"serve {arch}: tokens malformed "
+                                 f"{toks.shape}")
+        for key in ("prefill_logits", "logits"):
+            lg = out[key]
+            if lg.shape != (b, 1, cfg.vocab_size) \
+                    or not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"serve {arch}: {key} not finite or "
+                                     f"malformed")
+        kinds = set(cfg.layer_types())
+        for name, uses in SERVE_KERNELS.items():
+            if kinds & uses and counts.get(name, 0) <= 0:
+                raise AssertionError(f"serve {arch} never launched {name}")
+        runs[arch] = dict(
+            params=cfg.param_count(), layers=cfg.n_layers, wall_s=secs,
+            prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+            tok_per_s=out["tok_per_s"], peak_gib=peak / 2 ** 30,
+            launches=counts, first_tokens=toks[0, :8].tolist())
+        log(f"serve {arch} (full config: {cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.2f} B "
+            f"params, bf16): {b} x {SERVE['prompt_len']} prompt tokens, "
+            f"{n} greedy tokens each; prefill {out['prefill_s']:.3f} s "
+            f"({b * SERVE['prompt_len'] / out['prefill_s']:.0f} tok/s), "
+            f"decode {out['decode_s']:.3f} s for {n - 1} steps "
+            f"({out['tok_per_s']:.1f} tok/s, "
+            f"{out['decode_s'] / (n - 1) * 1e3:.2f} ms/step); peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; logits finite; launches "
+            + ", ".join(f"{k}={v}" for k, v in sorted(counts.items())))
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[arch]["breakdown"] = serving_breakdown(arch, seed, dev)
+    return runs
+
+
+def _kernel_class(name: str) -> str:
+    for key, cls in (("flash_fwd", "flash_attention"),
+                     ("rglru_scan", "rglru_scan"),
+                     ("selective_scan", "selective_scan"),
+                     ("gemm", "matmul"), ("xmma", "matmul"),
+                     ("nvjet", "matmul"), ("cutlass", "matmul")):
+        if key in name:
+            return cls
+    return "other"
+
+
+def serving_breakdown(arch: str, seed: int, dev) -> dict:
+    """Where one prefill and 8 decode steps of ``arch`` (full
+    config, fresh weights from the seed) spend the device's time: each
+    span once on the host clock (synchronized), once more under
+    ``torch.profiler``; device time summed by kernel class."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = lm.init_params(cfg, gen, dev)
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=dev)
+    max_len = s + SERVE["gen_tokens"]
+    steps = min(8, SERVE["gen_tokens"] - 1)
+    out = {}
+    with torch.inference_mode():
+        logits, cache = lm.prefill(params, prompts, cfg, max_len)  # warm
+        tok = logits.argmax(dim=-1)
+
+        def decode():
+            # re-decodes the same positions from the same prefill cache
+            c, t = cache, tok
+            for i in range(steps):
+                lg, c = lm.decode_step(params, t, c, s + i, cfg)
+                t = lg.argmax(dim=-1)
+
+        spans = {"prefill": lambda: lm.prefill(params, prompts, cfg, max_len),
+                 f"decode x{steps}": decode}
+        for name, fn in spans.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ops = [a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CUDA]
+            by = {}
+            for a in ops:
+                cls = _kernel_class(a.key)
+                by[cls] = by.get(cls, 0.0) + a.device_time_total / 1e3
+            busy = sum(by.values())
+            out[name] = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                             launches=sum(a.count for a in ops),
+                             device_ms_by_class=by)
+            log(f"breakdown {arch} {name}: wall {wall_ms:.2f} ms, device "
+                + (f"busy {busy:.2f} ms ({busy / wall_ms:.1%} of the "
+                   "unprofiled wall time, two runs), "
+                   f"{sum(a.count for a in ops)} device operations; "
+                   + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(
+                       by.items(), key=lambda kv: -kv[1]))
+                   if ops else "not measured (the profiler recorded no "
+                   "device activity)"))
+    del params, cache
+    return out
+
+
+def _band_pairs(sq: int, skv: int, window) -> int:
+    """(query, key) pairs inside the causal (and window) band."""
+    q = np.arange(sq) + (skv - sq)
+    hi = np.minimum(q + 1, skv)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _close(got, want, atol: float, rtol: float) -> float:
+    """max |got - want|; raises past atol + rtol |want|."""
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
+    if bool(bad.any()):
+        raise AssertionError(f"max |diff| {float(err.max())} over "
+                             f"atol {atol} + rtol {rtol}")
+    return float(err.max())
+
+
+def check_flash_attention(dev) -> dict:
+    """The attention kernel at one layer's prefill shapes of the serve
+    runs (recurrentgemma-9b: the headline; gemma2-2b local and global)
+    and at decode (Sq = 1 on a cache view), against the plain version,
+    timed beside SDPA where it applies (no softcap)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    smax = s + SERVE["gen_tokens"]
+    cur = smax - 1       # the last decode step's position
+    shapes = [("recurrentgemma-9b prefill", 16, 1, s, s, 2048, 0.0),
+              ("gemma2-2b local prefill", 8, 4, s, s, 4096, 50.0),
+              ("gemma2-2b global prefill", 8, 4, s, s, None, 50.0),
+              ("recurrentgemma-9b decode", 16, 1, 1, min(cur + 1, 2048),
+               2048, 0.0),
+              ("gemma2-2b global decode", 8, 4, 1, cur + 1, None, 50.0)]
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cases = []
+    for what, hq, hkv, sq, skv, window, cap in shapes:
+        d = 256
+        q = torch.randn((b, sq, hq, d), generator=g, device=dev,
+                        dtype=torch.bfloat16).transpose(1, 2)
+        if sq == 1:       # the live slice of a (B, Hkv, Smax, D) cache
+            cache = torch.randn((2, b, hkv, smax, d), generator=g,
+                                device=dev, dtype=torch.bfloat16)
+            k = cache[0, :, :, cur + 1 - skv:cur + 1]
+            v = cache[1, :, :, cur + 1 - skv:cur + 1]
+        else:
+            kv = torch.randn((2, b, skv, hkv, d), generator=g, device=dev,
+                             dtype=torch.bfloat16)
+            k, v = kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+        opts = dict(causal=True, window=window, softcap=cap)
+        run = lambda: flash_attention_cuda(q, k, v, **opts)  # noqa: E731
+        got = run()
+        if not torch.equal(got, run()):
+            raise AssertionError(f"flash_attention {what}: two launches "
+                                 "differ")
+        plain = lambda: attention_ref(q, k, v, **opts)  # noqa: E731
+        err = _close(got, plain(), 3e-2, 0.0)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        err32 = _close(flash_attention_cuda(qf, kf, vf, **opts),
+                       attention_ref(qf, kf, vf, **opts), 2e-5, 0.0)
+        del qf, kf, vf
+        pairs = _band_pairs(sq, skv, window)
+        n_ops = 4 * d * pairs * b * hq
+        nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+        library_ms = None
+        if cap == 0.0:
+            qi = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+            kj = torch.arange(skv, device=dev)[None, :]
+            mask = (kj <= qi) & ((kj > qi - window) if window else True)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+            lib_err = _close(lib(), plain(), 3e-2, 0.0)
+            library_ms = time_ms(lib, 5)
+        case = dict(shape=what, b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+                    window=window, softcap=cap, pairs=pairs,
+                    ms=time_ms(run, 5 if sq > 1 else 50),
+                    plain_ms=time_ms(plain, 2 if sq > 1 else 20),
+                    library_ms=library_ms,
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    max_abs_err=err, max_abs_err_f32=err32)
+        cases.append(case)
+        log(f"flash_attention[{what}] B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+            f"Skv={skv} D={d} window={window} softcap={cap}: bf16 "
+            f"|kernel - plain| {err:.3e}, float32 {err32:.3e}; kernel "
+            f"{case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, SDPA "
+            + (f"{library_ms:.4f} ms (|SDPA - plain| {lib_err:.3e})"
+               if library_ms is not None else "n/a (softcap)")
+            + f", bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    head = cases[0]
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:31",
+                max_abs_err=head["max_abs_err"],
+                tolerance="bf16 atol 3e-2, float32 atol 2e-5 vs the plain "
+                "version on the same inputs; two launches bit-equal",
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], shape=head["shape"],
+                cases=cases)
+
+
+def check_rglru(dev) -> dict:
+    """The RG-LRU kernel at one recurrentgemma-9b layer's prefill shape."""
+    import torch
+    from repro_torch.kernels.rglru_scan.kernel import rglru_cuda
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+
+    b, s, w = SERVE["batch"], SERVE["prompt_len"], 4096
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    x = torch.randn((b, s, w), generator=g, device=dev)
+    # gates as the layer makes them: a = exp(-8 softplus(lam) r)
+    lam = torch.log(torch.expm1(torch.linspace(0.35, 0.9, w, device=dev)))
+    r = torch.rand((b, s, w), generator=g, device=dev)
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(lam) * r)
+    run = lambda: rglru_cuda(x, a)  # noqa: E731
+    got = run()
+    if not torch.equal(got, run()):
+        raise AssertionError("rglru_scan: two launches differ")
+    plain = lambda: rglru_ref(x, a)  # noqa: E731
+    err = _close(got, plain(), 1e-4, 1e-4)
+    nbytes = 3 * b * s * w * 4
+    n_ops = 6 * b * s * w
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    entry = dict(name="rglru_scan", route="cuda",
+                 source="src/repro_torch/csrc/rglru_scan.cu",
+                 replaces="src/repro/kernels/rglru_scan/kernel.py:20",
+                 max_abs_err=err, tolerance="atol 1e-4 + rtol 1e-4 vs the "
+                 "plain version; two launches bit-equal",
+                 ms=time_ms(run, 20), plain_ms=time_ms(plain, 1),
+                 bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=None, shape=[b, s, w])
+    log(f"rglru_scan B={b} S={s} W={w}: |kernel - plain| {err:.3e}; kernel "
+        f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    return entry
+
+
+def check_selective_scan(dev) -> dict:
+    """The selective-scan kernel at one falcon-mamba-7b layer's prefill
+    shape, bf16 inputs as the layer passes them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+
+    b, s, dm, n = SERVE["batch"], SERVE["prompt_len"], 8192, 16
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    u = F.silu(torch.randn((b, s, dm), generator=g, device=dev)).to(**bf)
+    delta = F.softplus(torch.randn((b, s, dm), generator=g, device=dev)
+                       - 4.0).to(**bf)
+    A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).repeat(dm, 1)
+    B, C = (torch.randn((b, s, n), generator=g, device=dev).to(**bf)
+            for _ in range(2))
+    D = torch.ones(dm, device=dev)
+    run = lambda: selective_scan_cuda(u, delta, A, B, C, D)  # noqa: E731
+    y, h = run()
+    y2, h2 = run()
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        raise AssertionError("selective_scan: two launches differ")
+    plain = lambda: selective_scan_ref(u, delta, A, B, C, D)  # noqa: E731
+    py, ph = plain()
+    err = max(_close(y, py, 1e-4, 1e-4), _close(h, ph, 1e-4, 1e-4))
+    nbytes = (2 * b * s * dm * 2 + 2 * b * s * n * 2 + dm * n * 4 + dm * 4
+              + b * s * dm * 4 + b * dm * n * 4)
+    n_ops = b * s * dm * (7 * n + 3)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    entry = dict(name="selective_scan", route="cuda",
+                 source="src/repro_torch/csrc/mamba_scan.cu",
+                 replaces="src/repro/kernels/mamba_scan/kernel.py:29",
+                 max_abs_err=err, tolerance="atol 1e-4 + rtol 1e-4 on y and "
+                 "the final state vs the plain version; two launches "
+                 "bit-equal",
+                 ms=time_ms(run, 20), plain_ms=time_ms(plain, 1),
+                 bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=None, shape=[b, s, dm, n])
+    log(f"selective_scan B={b} S={s} Di={dm} N={n} (bf16 in): |kernel - "
+        f"plain| {err:.3e}; kernel {entry['ms']:.4f} ms, plain "
+        f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+        f"({entry['bound_by']})")
+    return entry
+
+
+def smoke_card_vs_cpu(dev) -> None:
+    """The smoke configs in float32, the same weights and prompts on the
+    card and on the CPU: identical greedy tokens, logits within 1e-4."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  param_dtype="float32")
+        gen = torch.Generator().manual_seed(0)
+        params = lm.init_params(cfg, gen, "cpu")
+        prompts = torch.randint(0, cfg.vocab_size, (4, 48), generator=gen)
+        cpu = generate(params, prompts, cfg, 16, 64)
+        card = generate(lm.to_device(params, dev), prompts.to(dev), cfg, 16,
+                        64)
+        if not np.array_equal(card["tokens"], cpu["tokens"]):
+            raise AssertionError(f"smoke {arch}: greedy tokens differ, card "
+                                 "vs CPU")
+        err = max(float((card[k].cpu() - cpu[k]).abs().max())
+                  for k in ("prefill_logits", "logits"))
+        if not err <= 1e-4:
+            raise AssertionError(f"smoke {arch}: logits differ by {err}")
+        log(f"reference check: {arch} smoke (float32) on the card == CPU "
+            f"plain versions: 4 x 16 greedy tokens identical, logits within "
+            f"{err:.3e}")
+
+
+def serving_phase(seed: int, dev) -> list:
+    """Phase 8; returns the new kernels' result dicts."""
+    import torch
+
+    runs = serving_path(seed, dev)
+    torch.cuda.empty_cache()
+    kernels = [check_flash_attention(dev), check_rglru(dev),
+               check_selective_scan(dev)]
+    for k in kernels:
+        uses = SERVE_KERNELS[k["name"]]
+        per_arch = {a: r["launches"].get(k["name"], 0)
+                    for a, r in runs.items()}
+        k["path"] = "serve (" + ", ".join(
+            a for a, c in per_arch.items() if c) + ")"
+        k["launches"] = sum(per_arch.values())
+        k["launches_by_arch"] = per_arch
+        if k["launches"] <= 0:
+            raise AssertionError(f"serve never launched {k['name']} "
+                                 f"(layers {sorted(uses)})")
+    kernels[0]["serve"] = runs
+    torch.cuda.empty_cache()
+    smoke_card_vs_cpu(dev)
+    return kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -771,6 +1175,7 @@ def main(argv=None) -> int:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
     kernels = run_phases(args.seed, args.model, torch.device("cuda"))
+    kernels += serving_phase(args.seed, torch.device("cuda"))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,17 @@
 """Carry the reference's parameters and state across as numpy arrays.
 
-The port has no neural weights: its parameters are the GBDT forests,
-the simulator state and the frozen workload table.  Each ``*_from_numpy``
-function takes plain numpy arrays (for example ``{f: getattr(obj, f)}``
-of a ``repro`` object) and returns the port's object with its tensors on
-``device``; :func:`forest_to_numpy` carries a forest the port trained
-back the other way.
-Float fields stay float64, integer fields int64, masks bool, exactly as
-the reference holds them.
+DIAL's parameters are the GBDT forests, the simulator state and the
+frozen workload table.  Each ``*_from_numpy`` function takes plain numpy
+arrays (for example ``{f: getattr(obj, f)}`` of a ``repro`` object) and
+returns the port's object with its tensors on ``device``;
+:func:`forest_to_numpy` carries a forest the port trained back the other
+way.  Float fields stay float64, integer fields int64, masks bool,
+exactly as the reference holds them.
+
+The LM's weights and decode caches (:func:`lm_params_from_numpy`,
+:func:`lm_cache_from_numpy`) keep their dtypes: float32 stays float32,
+bfloat16 (ml_dtypes' ``bfloat16`` in numpy, which ``torch.from_numpy``
+rejects) goes through float32, which holds every bfloat16 exactly.
 """
 
 from __future__ import annotations
@@ -88,3 +92,54 @@ def table_from_numpy(fields: dict, n_osc: int, n_waves: int, device=None):
     return WorkloadTable.from_arrays(
         {k: np.asarray(v) for k, v in fields.items()}, n_osc=n_osc,
         n_waves=n_waves, device=dev)
+
+
+# --------------------------------------------------------------------- #
+# the LM
+# --------------------------------------------------------------------- #
+def _lm_tensor(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _flat_layers(cfg, tree) -> list:
+    """The reference's ``{"stack": per pattern position, leading n_rep
+    axis; "tail": ...}`` as one list of per-layer trees, in layer order."""
+    layers = [_tree(lambda a, r=r: np.asarray(a)[r], tree["stack"][i])
+              for r in range(cfg.n_rep)
+              for i in range(len(cfg.layer_pattern))]
+    return layers + list(tree["tail"])
+
+
+def lm_params_from_numpy(cfg, params, device=None) -> dict:
+    """The reference LM's parameter tree (``repro.models.lm.init_params``,
+    leaves as numpy arrays) as the port's: ``embed``, ``final_norm``,
+    ``head`` if untied, and ``layers``, one dict per layer in order."""
+    dev = resolve_device(device)
+    to = lambda a: _lm_tensor(a, dev)          # noqa: E731
+    out = {k: _tree(to, v) for k, v in params.items()
+           if k not in ("stack", "tail")}
+    out["layers"] = [_tree(to, p) for p in _flat_layers(cfg, params)]
+    return out
+
+
+def lm_cache_from_numpy(cfg, cache, device=None) -> list:
+    """The reference's decode cache (``init_cache``/``prefill``, leaves as
+    numpy arrays) as the port's per-layer list; attention ``k``/``v`` go
+    from (B, Smax, Hkv, Dh) to the port's (B, Hkv, Smax, Dh)."""
+    dev = resolve_device(device)
+    out = []
+    for c in _flat_layers(cfg, cache):
+        if "k" in c:
+            c = {k: np.swapaxes(np.asarray(c[k]), 1, 2) for k in ("k", "v")}
+        out.append(_tree(lambda a: _lm_tensor(a, dev), c))
+    return out

@@ -1,0 +1,95 @@
+"""Batched serving: prefill a batch of prompts, decode new tokens
+greedily, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b [--full]
+
+Mirrors ``repro/launch/serve.py`` for the families the port carries
+(:data:`repro_torch.configs.ARCHS`).  Weights are random, drawn with the
+reference's init formulas from a ``torch.Generator`` seeded by ``seed``
+(other numbers than JAX's from the same seed).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.models import lm
+
+
+def generate(params, prompts, cfg, gen_tokens: int, max_len: int) -> dict:
+    """Prefill ``prompts`` (B, S) and decode ``gen_tokens`` greedy tokens
+    (the first from the prefill logits), on the prompts' device.
+
+    Returns ``tokens`` (B, gen_tokens) int64 on the host, ``prefill_s``
+    and ``decode_s`` (host clock, the device synchronized before each
+    reading), and the float32 ``prefill_logits`` (B, 1, V) and last
+    decode ``logits``.
+    """
+    dev = prompts.device
+
+    def clock():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    with torch.inference_mode():
+        t0 = clock()
+        logits, cache = lm.prefill(params, prompts, cfg, max_len)
+        prefill_s = clock() - t0
+        prefill_logits = logits
+        cur = prompts.shape[1]
+        tok = logits.argmax(dim=-1)                        # (B, 1)
+        out = [tok]
+        t0 = clock()
+        for i in range(gen_tokens - 1):
+            logits, cache = lm.decode_step(params, tok, cache, cur + i, cfg)
+            tok = logits.argmax(dim=-1)
+            out.append(tok)
+        decode_s = clock() - t0
+    return {"tokens": torch.cat(out, dim=1).cpu().numpy(),
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "prefill_logits": prefill_logits, "logits": logits}
+
+
+def serve(arch: str, batch: int = 4, prompt_len: int = 32,
+          gen_tokens: int = 16, smoke: bool = True, seed: int = 0,
+          greedy: bool = True, device=None) -> dict:
+    """Serve ``batch`` random prompts of ``prompt_len`` tokens and decode
+    ``gen_tokens`` each; ``device=None`` is the card.  Returns
+    :func:`generate`'s dict plus ``tok_per_s`` (decode tokens per second)."""
+    if not greedy:
+        raise NotImplementedError("only greedy decoding is served")
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = lm.init_params(cfg, gen, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen, device=dev)
+    out = generate(params, prompts, cfg, gen_tokens, prompt_len + gen_tokens)
+    out["tok_per_s"] = batch * (gen_tokens - 1) / max(out["decode_s"], 1e-9)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="gemma2-2b", choices=list(ARCHS))
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-tokens", type=int, default=16)
+    ap.add_argument("--full", action="store_true")
+    args = ap.parse_args(argv)
+    out = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                gen_tokens=args.gen_tokens, smoke=not args.full)
+    print(f"[serve] generated {out['tokens'].shape} tokens; "
+          f"prefill {out['prefill_s']:.2f}s, "
+          f"{out['tok_per_s']:.1f} tok/s decode")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,104 @@
+"""Shared building blocks: norms, activations, RoPE, MLP, causal conv.
+
+Each function mirrors ``repro/models/layers.py`` step for step, dtype
+casts included, so bf16 rounds at the same places: statistics and RoPE
+in float32, results cast back to the input's dtype.  ``gelu`` is the
+tanh approximation (``jax.nn.gelu``'s default), not torch's erf form.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def init_normal(gen, device, dtype):
+    """``normal(shape, std)``: standard normals from ``gen`` (float32),
+    times ``std``, cast to ``dtype`` -- the reference's init formula."""
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=device)
+                * std).to(dtype)
+    return normal
+
+
+def rms_norm(x, scale, eps: float):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps: float):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(x, p, cfg):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": gelu}[name]
+
+
+def rope(x, positions, theta: float):
+    """Rotary embeddings.  x: (..., S, H, Dh), Dh even; positions (..., S).
+
+    The frequencies are ``theta ** (-arange(half) / half)`` in float32,
+    as the reference computes them (a float64 pow rounds differently).
+    """
+    half = x.shape[-1] // 2
+    expo = -torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=x.device), expo)
+    ang = positions[..., None].float() * freq              # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp(x, p, cfg):
+    a = act_fn(cfg.act)
+    if cfg.mlp_gated:
+        h = a(x @ p["gate"]) * (x @ p["up"])
+    else:
+        h = a(x @ p["up"])
+    return h @ p["down"]
+
+
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal temporal conv.
+
+    x: (B, S, D); w: (D, K).  ``state`` (B, K-1, D) holds the trailing
+    inputs of the previous chunk (zeros when None).  History and input
+    are joined in their promoted dtype, as ``jnp.concatenate`` does (a
+    float32 decode state with a bf16 input gives a float32 state); y is
+    summed in float32 and cast to x's dtype.  Returns (y, new_state).
+    """
+    b, s, d = x.shape
+    k = w.shape[1]
+    if state is None:
+        state = x.new_zeros((b, k - 1, d))
+    dt = torch.promote_types(state.dtype, x.dtype)
+    xx = torch.cat([state.to(dt), x.to(dt)], dim=1)         # (B, S+K-1, D)
+    wf = w.float()
+    y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        y = y + xx[:, i:i + s, :].float() * wf[:, i]
+    new_state = xx[:, xx.shape[1] - (k - 1):, :]
+    return y.to(x.dtype), new_state

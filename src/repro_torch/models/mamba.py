@@ -1,0 +1,86 @@
+"""Mamba-1 block (falcon-mamba): gated selective state-space layer.
+
+Mirrors ``repro/models/mamba.py``.  Prefill scans the whole prompt in
+one call of the selective-scan kernel (:mod:`repro_torch.kernels.
+mamba_scan`), which also returns the final state; the reference scans in
+512-step chunks (TPU memory) and gets that state from a second scan.
+Decode is the single-step update in plain PyTorch, as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.mamba_scan.ops import selective_scan
+from repro_torch.models.layers import causal_conv1d, init_normal
+
+
+def init_mamba(cfg, gen, device, dtype):
+    d, di, n, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    kc = cfg.ssm_conv
+    normal = init_normal(gen, device, dtype)
+
+    f32 = dict(dtype=torch.float32, device=device)
+    dt = torch.rand((di,), generator=gen, **f32) * 0.099 + 0.001
+    return {
+        "in_proj": normal((d, 2 * di), d ** -0.5),
+        "conv_w": normal((di, kc), kc ** -0.5),
+        "x_proj": normal((di, dtr + 2 * n), di ** -0.5),
+        "dt_proj": normal((dtr, di), dtr ** -0.5),
+        "dt_bias": torch.log(torch.expm1(torch.clamp(dt, min=1e-4))),
+        "A_log": torch.log(torch.arange(1, n + 1, **f32).repeat(di, 1)),
+        "D": torch.ones((di,), **f32),
+        "out_proj": normal((di, d), di ** -0.5),
+    }
+
+
+def _ssm_inputs(u, p, cfg):
+    """Project the conv output to (delta, B, C); delta's softplus runs in
+    u's dtype, as the reference's does."""
+    n, dtr = cfg.ssm_state, cfg.dt_rank
+    dt_in, b_in, c_in = (u @ p["x_proj"]).split([dtr, n, n], dim=-1)
+    delta = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"].to(dt_in.dtype))
+    return delta, b_in, c_in
+
+
+def mamba_prefill(x, p, cfg):
+    """Over the prompt.  x (B, S, D) -> (out (B, S, D), state for decode:
+    ``conv`` (B, K-1, Di), the last pre-conv inputs, and ``ssm`` (B, Di,
+    N), both float32)."""
+    u, z = (x @ p["in_proj"]).chunk(2, dim=-1)             # (B, S, Di) each
+    uc, conv = causal_conv1d(u, p["conv_w"])
+    uc = F.silu(uc)
+    delta, b_in, c_in = _ssm_inputs(uc, p, cfg)
+    y, h = selective_scan(uc, delta, -torch.exp(p["A_log"]), b_in, c_in,
+                          p["D"])
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"], {"conv": conv.float(), "ssm": h}
+
+
+def mamba_block(x, p, cfg):
+    """Forward without the state.  x: (B, S, D) -> (B, S, D)."""
+    return mamba_prefill(x, p, cfg)[0]
+
+
+def init_mamba_state(cfg, batch, device, dtype=torch.float32):
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                               dtype=dtype, device=device)}
+
+
+def mamba_decode(x, p, cfg, state):
+    """One token.  x (B, 1, D) -> (out, new state)."""
+    u, z = (x @ p["in_proj"]).chunk(2, dim=-1)             # (B, 1, Di)
+    u, conv_state = causal_conv1d(u, p["conv_w"], state["conv"])
+    u = F.silu(u)
+    delta, b_in, c_in = _ssm_inputs(u, p, cfg)
+    A = -torch.exp(p["A_log"])
+    dt0 = delta[:, 0].float()                              # (B, Di)
+    u0 = u[:, 0].float()
+    h = torch.exp(dt0[..., None] * A) * state["ssm"] \
+        + (dt0 * u0)[..., None] * b_in[:, 0].float()[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, c_in[:, 0].float()) + p["D"] * u0
+    y = y[:, None].to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"], {"conv": conv_state, "ssm": h}

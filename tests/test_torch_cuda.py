@@ -13,6 +13,11 @@ bit for bit in float64 and within 1e-6 of the largest |cell| in float32
 (two launches bit-equal in both), the tuned fleet's θ trajectory
 exactly, counters to 1e-6, and an exact GBDT fit on the card equal to
 the CPU fit (features equal, thresholds and leaves within 1e-5).
+The serving slice's kernels are held against their plain versions at
+smoke and full-width layer shapes (attention: float32 2e-5, bf16 3e-2,
+the decode form on a strided cache view included; the scans 1e-4), two
+launches bit-equal, and the smoke configs' greedy tokens on the card
+equal the CPU's (float32 weights; logits within 1e-4).
 """
 
 import numpy as np
@@ -30,7 +35,17 @@ from repro_torch.kernels.gbdt_forest.kernel import forest_margin_cuda  # noqa: E
 from repro_torch.kernels.segment_reduce.ops import SegmentMap, segment_sum  # noqa: E402
 from repro_torch.kernels.tree_histogram.kernel import tree_histogram_cuda  # noqa: E402
 from repro_torch.kernels.tree_histogram.ops import BinIndex, tree_histogram  # noqa: E402
+from repro_torch.configs import ARCHS, get_smoke_config  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda  # noqa: E402
+from repro_torch.kernels.mamba_scan.ops import selective_scan  # noqa: E402
+from repro_torch.kernels.rglru_scan.ops import rglru  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_ref  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.learn.boost import fit_forest  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.pfs import workloads as W  # noqa: E402
 from repro_torch.pfs.engine import PFSSim  # noqa: E402
 from repro_torch.pfs.state import READ, WRITE  # noqa: E402
@@ -278,3 +293,161 @@ def test_gain_rounding_on_card_matches_numpy(cuda):
     x = rng.standard_normal(10 ** 6) * 10.0 ** rng.uniform(-3, 4, 10 ** 6)
     got = torch.round(torch.as_tensor(x, device=cuda), decimals=9)
     np.testing.assert_array_equal(got.cpu().numpy(), np.round(x, 9))
+
+
+# ---------------------------------------------------------------------- #
+# the serving slice
+# ---------------------------------------------------------------------- #
+ATTENTION = {
+    # tests/test_kernels.py:44-53
+    "mha": dict(b=1, hq=4, hkv=4, sq=64, skv=64, d=32),
+    "gqa": dict(b=2, hq=8, hkv=2, sq=64, skv=64, d=32),
+    "mqa_pad": dict(b=1, hq=4, hkv=1, sq=48, skv=48, d=64),
+    "window": dict(b=1, hq=4, hkv=2, sq=64, skv=64, d=32, window=16),
+    "softcap": dict(b=1, hq=4, hkv=4, sq=64, skv=64, d=32, softcap=50.0),
+    "decode": dict(b=1, hq=4, hkv=2, sq=1, skv=100, d=32),
+    "window_offset": dict(b=1, hq=2, hkv=2, sq=40, skv=104, d=64, window=32),
+    "noncausal": dict(b=1, hq=2, hkv=2, sq=64, skv=64, d=32, causal=False),
+    # smoke configs (D = 16) and one full-width layer of each family
+    "gemma2_smoke": dict(b=2, hq=4, hkv=2, sq=37, skv=37, d=16, window=16,
+                         softcap=50.0),
+    "recurrentgemma_full": dict(b=1, hq=16, hkv=1, sq=3072, skv=3072,
+                                d=256, window=2048),
+    "gemma2_full_local": dict(b=1, hq=8, hkv=4, sq=3072, skv=3072, d=256,
+                              window=4096, softcap=50.0),
+    "gemma2_full_global": dict(b=1, hq=8, hkv=4, sq=3072, skv=3072, d=256,
+                               softcap=50.0),
+}
+
+
+def _attention_inputs(case, dtype, device, seed=0):
+    c = dict(case)
+    shape_q = (c.pop("b"), c.pop("hq"), c.pop("sq"), c["d"])
+    shape_k = (shape_q[0], c.pop("hkv"), c.pop("skv"), c.pop("d"))
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g).to(dtype).to(device)
+               for s in (shape_q, shape_k, shape_k))
+    return q, k, v, c
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("name", sorted(ATTENTION))
+def test_flash_attention_kernel_matches_plain(cuda, name, dtype, tol):
+    q, k, v, opts = _attention_inputs(ATTENTION[name], dtype, cuda)
+    n0 = LAUNCHES["flash_attention"]
+    got = attention(q, k, v, **opts)
+    again = attention(q, k, v, **opts)
+    assert LAUNCHES["flash_attention"] == n0 + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    want = attention_ref(q, k, v, **opts)
+    assert float((got.float() - want).abs().max()) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("hq,hkv,d,window,softcap", [
+    (4, 2, 16, 16, 50.0), (16, 1, 256, 2048, 0.0), (8, 4, 256, 0, 50.0)])
+def test_flash_attention_decode_on_a_cache_view(cuda, dtype, tol, hq, hkv, d,
+                                                window, softcap):
+    """Sq = 1 on the live slice of a (B, Hkv, Smax, D) cache, as
+    ``attention_decode`` passes it, against the plain version on a
+    contiguous copy."""
+    g = torch.Generator().manual_seed(d)
+    cache_k = torch.randn((2, hkv, 3104, d), generator=g).to(dtype).to(cuda)
+    cache_v = torch.randn((2, hkv, 3104, d), generator=g).to(dtype).to(cuda)
+    q = torch.randn((2, 1, hq, d), generator=g).to(dtype).to(cuda)
+    for cur in (0, 5, 3071, 3100):
+        start = max(0, cur - window + 1) if window else 0
+        k, v = cache_k[:, :, start:cur + 1], cache_v[:, :, start:cur + 1]
+        assert not k.is_contiguous() or cur + 1 - start == 3104
+        got = attention(q.transpose(1, 2), k, v, window=window,
+                        softcap=softcap)
+        want = attention_ref(q.transpose(1, 2), k.contiguous(),
+                             v.contiguous(), window=window or None,
+                             softcap=softcap)
+        assert float((got.float() - want).abs().max()) < tol, cur
+
+
+def test_flash_attention_kernel_zero_rows_and_checks(cuda):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 2, 40, 32), generator=g).to(cuda)
+    k = torch.randn((1, 1, 4, 32), generator=g).to(cuda)
+    out = attention(q, k, k)                    # queries 0-35 see no key
+    assert not out[:, :, :36].any()
+    assert float((out - attention_ref(q, k, k)).abs().max()) < 2e-5
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(q[..., :24], k[..., :24], k[..., :24])
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_cuda(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(2, 3)[..., :32, :].contiguous()
+                             .transpose(2, 3), k, k)
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 32, 64), (3, 17, 100),
+                                   (4, 3072, 4096)])
+def test_rglru_kernel_matches_plain(cuda, b, s, w):
+    g = torch.Generator().manual_seed(s)
+    x = torch.randn((b, s, w), generator=g)
+    a = torch.sigmoid(torch.randn((b, s, w), generator=g))
+    n0 = LAUNCHES["rglru_scan"]
+    got = rglru(x.to(cuda), a.to(cuda))
+    again = rglru(x.to(cuda), a.to(cuda))
+    assert LAUNCHES["rglru_scan"] == n0 + 2
+    assert torch.equal(got, again)
+    want = rglru_ref(x.to(cuda), a.to(cuda))
+    assert float((got - want).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,dm,n", [(2, 32, 128, 8), (1, 33, 256, 16),
+                                      (4, 512, 8192, 16)])
+def test_mamba_kernel_matches_plain(cuda, dtype, b, s, dm, n):
+    g = torch.Generator().manual_seed(s)
+    u = torch.randn((b, s, dm), generator=g)
+    delta = torch.nn.functional.softplus(torch.randn((b, s, dm), generator=g)
+                                         - 2.0)
+    A = -torch.arange(1, n + 1, dtype=torch.float32).repeat(dm, 1)
+    B, C = (torch.randn((b, s, n), generator=g) for _ in range(2))
+    D = torch.ones(dm)
+    args = [t.to(cuda) for t in (u, delta, A, B, C, D)]
+    for i in (0, 1, 3, 4):
+        args[i] = args[i].to(dtype)
+    n0 = LAUNCHES["selective_scan"]
+    y, h = selective_scan(*args)
+    y2, h2 = selective_scan(*args)
+    assert LAUNCHES["selective_scan"] == n0 + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    plain_y, plain_h = selective_scan(*(t.cpu() for t in args))
+    assert float((y.cpu() - plain_y).abs().max()) < 1e-4
+    assert float((h.cpu() - plain_h).abs().max()) < 1e-4
+    with pytest.raises(ValueError, match="N="):
+        selective_scan_cuda(*args[:2], args[2][:, :3].contiguous(),
+                            args[3][..., :3].contiguous(),
+                            args[4][..., :3].contiguous(), args[5])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_serving_on_card_matches_cpu(cuda, arch):
+    """The same float32 weights and prompts: greedy tokens identical,
+    prefill and last logits within 1e-4, every kernel of the family
+    launched on the card and none on the CPU."""
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    params = lm.init_params(cfg, gen, "cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    LAUNCHES.clear()
+    cpu = generate(params, prompts, cfg, 12, 52)
+    assert dict(LAUNCHES) == {}
+    card = generate(lm.to_device(params, cuda), prompts.to(cuda), cfg, 12, 52)
+    kinds = set(cfg.layer_types())
+    want = {"flash_attention": bool(kinds & {"attn", "attn_local"}),
+            "rglru_scan": "recurrent" in kinds,
+            "selective_scan": "mamba" in kinds}
+    assert {k: LAUNCHES[k] > 0 for k in want} == want
+    np.testing.assert_array_equal(card["tokens"], cpu["tokens"])
+    for key in ("prefill_logits", "logits"):
+        assert float((card[key].cpu() - cpu[key]).abs().max()) < 1e-4

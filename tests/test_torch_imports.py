@@ -41,7 +41,7 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 30      # every module of both slices was imported
+    assert int(out[0]) >= 58      # every module of the three slices was imported
     assert out[1:] == ["[]"]
 
 
@@ -57,6 +57,25 @@ def test_training_slice_modules_are_probed():
             "repro_torch.kernels.tree_histogram.kernel",
             "repro_torch.kernels.tree_histogram.ops",
             "repro_torch.kernels.tree_histogram.ref"} <= names
+
+
+def test_serving_slice_modules_are_probed():
+    """The walk above reaches the serving slice's modules."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    kernels = [f"repro_torch.kernels.{k}.{m}"
+               for k in ("flash_attention", "mamba_scan", "rglru_scan")
+               for m in ("kernel", "ops", "ref")]
+    assert {"repro_torch.configs", "repro_torch.configs.gemma2_2b",
+            "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.configs.falcon_mamba_7b",
+            "repro_torch.models.config", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.rglru",
+            "repro_torch.models.mamba", "repro_torch.models.lm",
+            "repro_torch.launch.serve", *kernels} <= names
 
 
 def test_no_jax_or_reference_import_in_sources():
@@ -94,6 +113,20 @@ def test_entry_points_raise_without_cuda(tmp_path):
         fit_forest(x, y)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_models({"read": (x, y), "write": (x, y)})
+
+
+def test_serve_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.launch.serve import serve
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("gemma2-2b")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "falcon-mamba-7b"], env=_env(), capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

@@ -66,6 +66,9 @@ def tree_histogram_cuda(values: torch.Tensor, perm: torch.Tensor,
     _check("node", node, torch.int32, (b, n), dev)
     _check("perm", perm, torch.int32, (b, f, n), dev)
     _check("bnd", bnd, torch.int32, (b, f, n_bins + 1), dev)
+    if perm.data_ptr() % 16:
+        raise ValueError("tree_histogram_cuda: perm must start on a 16-byte "
+                         "boundary (the kernel copies it 16 bytes at a time)")
     out = torch.empty((b, c, n_nodes, f, n_bins), dtype=values.dtype,
                       device=dev)
     err = _entry(values.dtype)(
@@ -76,4 +79,29 @@ def tree_histogram_cuda(values: torch.Tensor, perm: torch.Tensor,
         raise RuntimeError(f"{_ENTRIES[values.dtype]} launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["tree_histogram"] += 1
+    return out
+
+
+def add_chain_cuda(v: torch.Tensor, n: int) -> torch.Tensor:
+    """The float64 order bound's probe: one thread's sum of ``v[i % 8]``
+    for ``i < n``, in that order -- ``n`` dependent adds on registers.
+    ``v`` is 8 float64 values on the card; returns a ``(1,)`` tensor.
+    Not a port of a TPU kernel, so no launch is counted."""
+    if v.device.type != "cuda" or v.dtype != torch.float64 \
+            or tuple(v.shape) != (8,) or not v.is_contiguous() or n < 0:
+        raise ValueError("add_chain_cuda: v must be 8 contiguous float64 "
+                         f"values on the card and n >= 0, got {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}, n={n}")
+    fn = _fns.get("add_chain")
+    if fn is None:
+        fn = _build.library("tree_histogram").add_chain_f64
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["add_chain"] = fn
+    out = torch.empty(1, dtype=torch.float64, device=v.device)
+    err = fn(v.data_ptr(), n, out.data_ptr(),
+             torch.cuda.current_stream(v.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"add_chain_f64 launch failed: CUDA error {err}")
     return out

@@ -17,7 +17,13 @@ The serving slice's kernels are held against their plain versions at
 smoke and full-width layer shapes (attention: float32 2e-5, bf16 3e-2,
 the decode form on a strided cache view included; the scans 1e-4), two
 launches bit-equal, and the smoke configs' greedy tokens on the card
-equal the CPU's (float32 weights; logits within 1e-4).
+equal the CPU's (float32 weights; logits within 1e-4).  The attention
+forms are each held at their edges (bf16 also row by row, within 5% of
+each row's RMS): the split-KV decode at split boundaries and GQA groups
+of 1, 2 and 16, the bf16 tensor-core prefill at every head dim with
+ragged, end-aligned and key-less rows; the
+histogram's chunk ring with segments across chunks, more than 32 cells
+and empty bins.
 """
 
 import numpy as np
@@ -268,6 +274,46 @@ def test_tree_histogram_kernel_checks_inputs(cuda):
         tree_histogram_cuda(v[0], index.perm, index.bnd, nd, 2)
 
 
+def _chunked_inputs(rng, n, f, n_bins, n_nodes, channels, dtype):
+    """Codes that leave every odd bin empty and put most samples of the
+    first feature in one bin, so segments start off the 16-byte grid and
+    cross the kernel's 256-sample chunks; node ids past n_nodes dropped."""
+    values = rng.normal(size=(1, channels, n)) * 10.0 ** rng.uniform(
+        -3, 3, (1, 1, n))
+    bins = 2 * rng.integers(0, n_bins // 2, size=(1, n, f))
+    bins[0, :, 0] = np.where(rng.random(n) < 0.9, 4, bins[0, :, 0])
+    node = rng.integers(-1, n_nodes + 2, size=(1, n))
+    return (torch.as_tensor(values, dtype=dtype),
+            torch.as_tensor(bins, dtype=torch.int32),
+            torch.as_tensor(node, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,n_nodes,channels", [
+    (1000, 1, 1), (5003, 20, 2), (777, 9, 4), (300, 33, 1), (129, 3, 3)])
+def test_tree_histogram_kernel_chunks_groups_and_empty_segments(
+        cuda, dtype, n, n_nodes, channels):
+    """Segments crossing chunk boundaries, n_nodes x C over 32 (more
+    than one block per segment) and empty segments: float64 bit-equal to
+    the plain version, float32 within 1e-6 of the largest |cell|, two
+    launches bit-equal."""
+    values, bins, node = _chunked_inputs(np.random.default_rng(n), n, 5, 16,
+                                         n_nodes, channels, dtype)
+    plain = tree_histogram(values, BinIndex.build(bins, 16), node, n_nodes)
+    index = BinIndex.build(bins.to(cuda), 16)
+    first = tree_histogram(values.to(cuda), index, node.to(cuda), n_nodes)
+    again = tree_histogram(values.to(cuda), index, node.to(cuda), n_nodes)
+    assert torch.equal(first, again)
+    got = first.cpu()
+    assert not got[..., 1::2].any()                   # the empty bins
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(got.numpy().view(np.int64),
+                                      plain.numpy().view(np.int64))
+    else:
+        scale = float(plain.abs().max())
+        assert float((got - plain).abs().max()) <= 1e-6 * scale
+
+
 def test_exact_fit_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(0)
     X = rng.normal(size=(2500, 10))
@@ -318,6 +364,20 @@ ATTENTION = {
     "gemma2_full_global": dict(b=1, hq=8, hkv=4, sq=3072, skv=3072, d=256,
                                softcap=50.0),
 }
+
+
+# bf16 attention, besides atol 3e-2: each output row's max |kernel - plain|
+# within this share of the row's RMS (as chip_smoke.py), which a dropped
+# or doubled key split or tile exceeds
+BF16_ROW_REL = 5e-2
+
+
+def _row_rel(got, want):
+    """max over output rows of max |got - want| / RMS of the want row (a
+    row where want is 0 must be 0)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    rms = want.float().square().mean(-1).sqrt()
+    return float(torch.where(err > 0, err / rms, 0.0).max())
 
 
 def _attention_inputs(case, dtype, device, seed=0):
@@ -384,6 +444,65 @@ def test_flash_attention_kernel_zero_rows_and_checks(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_cuda(q.transpose(2, 3)[..., :32, :].contiguous()
                              .transpose(2, 3), k, k)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("hq,hkv,d,softcap", [(4, 4, 64, 0.0),
+                                              (8, 4, 256, 50.0),
+                                              (8, 1, 128, 50.0),
+                                              (16, 1, 256, 0.0)])
+@pytest.mark.parametrize("skv,window", [
+    (1, 0), (15, 0), (16, 0), (17, 0), (63, 0), (64, 0), (65, 0),
+    (2048, 2048), (2048, 0), (3104, 0), (3104, 2048), (3104, 1)])
+def test_flash_attention_decode_split_edges(cuda, dtype, tol, hq, hkv, d,
+                                            softcap, skv, window):
+    """Sq = 1 at the bf16 decode form's split edges (1 key, a split's
+    length +-1, the serving lengths), with a window inside the passed keys,
+    and GQA groups of 1, 2, 8 and 16: against the plain version (bf16 also
+    row by row), two launches bit-equal; each bf16 call is one
+    ``flash_attention`` and one ``flash_attention_combine`` launch, each
+    float32 call one ``flash_attention`` launch (the CUDA-core form)."""
+    g = torch.Generator().manual_seed(skv + d)
+    q = torch.randn((2, hq, 1, d), generator=g).to(dtype).to(cuda)
+    k = torch.randn((2, hkv, skv, d), generator=g).to(dtype).to(cuda)
+    v = torch.randn((2, hkv, skv, d), generator=g).to(dtype).to(cuda)
+    n0 = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_combine"]
+    got = attention(q, k, v, window=window, softcap=softcap)
+    again = attention(q, k, v, window=window, softcap=softcap)
+    combines = 2 if dtype == torch.bfloat16 else 0
+    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_combine"]
+            ) == (n0[0] + 2, n0[1] + combines)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    want = attention_ref(q, k, v, window=window or None, softcap=softcap)
+    assert float((got.float() - want).abs().max()) < tol
+    if dtype == torch.bfloat16:
+        assert _row_rel(got, want) < BF16_ROW_REL
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("sq,skv,window,softcap,causal", [
+    (100, 100, 0, 0.0, True), (70, 150, 32, 50.0, True),
+    (40, 4, 0, 0.0, True), (129, 129, 0, 0.0, False)])
+def test_flash_attention_bf16_prefill_form(cuda, d, sq, skv, window,
+                                           softcap, causal):
+    """The bf16 tensor-core form at every head dim: Sq off the 64-row
+    tile, Sq < Skv end-aligned with a window and softcap, rows that see no
+    key (exactly 0), non-causal; two launches bit-equal; within atol 3e-2
+    and each row within BF16_ROW_REL of its RMS."""
+    g = torch.Generator().manual_seed(sq + d)
+    q = torch.randn((2, 4, sq, d), generator=g).to(torch.bfloat16).to(cuda)
+    k = torch.randn((2, 2, skv, d), generator=g).to(torch.bfloat16).to(cuda)
+    v = torch.randn((2, 2, skv, d), generator=g).to(torch.bfloat16).to(cuda)
+    opts = dict(causal=causal, window=window or None, softcap=softcap)
+    got = flash_attention_cuda(q, k, v, **opts)
+    assert torch.equal(got, flash_attention_cuda(q, k, v, **opts))
+    want = attention_ref(q, k, v, **opts)
+    assert float((got.float() - want).abs().max()) < 3e-2
+    assert _row_rel(got, want) < BF16_ROW_REL
+    blind = max(0, sq - skv) if causal else 0      # rows before every key
+    assert not got[:, :, :blind].any()
 
 
 @pytest.mark.parametrize("b,s,w", [(2, 32, 64), (3, 17, 100),

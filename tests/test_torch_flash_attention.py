@@ -19,6 +19,8 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.kernels.flash_attention.ops import attention as ref_attention  # noqa: E402
 from repro.models.attention import chunked_attention  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    DECODE_KEYS, MIN_SPLIT, attention_form, decode_splits)
 from repro_torch.kernels.flash_attention.ops import attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
@@ -122,3 +124,30 @@ def test_dispatch_takes_strided_views_and_window_zero():
     torch.testing.assert_close(attention(*views, window=4),
                                attention_ref(*dense, window=4), rtol=0,
                                atol=0)
+
+
+@pytest.mark.parametrize("band,rows,n_sm,want", [
+    (1, 1, 132, (1, 16)), (2048, 4, 132, (64, 32)),
+    (3104, 16, 132, (49, 64)), (65, 8, 132, (5, 16)),
+    (100000, 4, 132, (1563, 64)), (16, 264, 132, (1, 16))])
+def test_decode_splits(band, rows, n_sm, want):
+    splits, length = decode_splits(band, rows, n_sm)
+    assert (splits, length) == want
+    assert MIN_SPLIT <= length <= DECODE_KEYS and length % MIN_SPLIT == 0
+    assert (splits - 1) * length < band <= splits * length   # none empty
+    # two blocks per SM where the keys allow, but for the rounding of the
+    # length up to a multiple of MIN_SPLIT, which at most halves them
+    assert 2 * splits * rows >= min(2 * n_sm, rows * -(-band // MIN_SPLIT))
+
+
+def test_decode_splits_rejects_empty():
+    with pytest.raises(ValueError):
+        decode_splits(0, 4, 132)
+
+
+@pytest.mark.parametrize("sq,dtype,form", [
+    (1, torch.bfloat16, "decode"), (1, torch.float32, "cuda_core"),
+    (2, torch.bfloat16, "mma"), (3072, torch.bfloat16, "mma"),
+    (2, torch.float32, "cuda_core"), (3072, torch.float32, "cuda_core")])
+def test_attention_form(sq, dtype, form):
+    assert attention_form(sq, dtype) == form

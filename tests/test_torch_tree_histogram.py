@@ -20,7 +20,8 @@ from repro.kernels.tree_histogram.kernel import \
 from repro.kernels.tree_histogram.ref import tree_histogram_np  # noqa: E402
 from repro.learn.boost import sort_structs  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
-from repro_torch.kernels.tree_histogram.kernel import tree_histogram_cuda  # noqa: E402
+from repro_torch.kernels.tree_histogram.kernel import (  # noqa: E402
+    add_chain_cuda, tree_histogram_cuda)
 from repro_torch.kernels.tree_histogram.ops import (BinIndex, sort_index,  # noqa: E402
                                                     tree_histogram)
 from repro_torch.kernels.tree_histogram.ref import tree_histogram_ref  # noqa: E402
@@ -135,3 +136,12 @@ def test_cpu_path_launches_nothing_and_kernel_refuses_cpu():
     assert LAUNCHES["tree_histogram"] == 0
     with pytest.raises(ValueError, match="values on cpu"):
         tree_histogram_cuda(v, *sort_index(index.bins, n_bins), nd, n_nodes)
+
+
+def test_order_bound_probe_refuses_cpu():
+    """The order bound's probe runs on the card only, and counts no
+    launch (it ports no TPU kernel)."""
+    LAUNCHES.clear()
+    with pytest.raises(ValueError, match="add_chain_cuda"):
+        add_chain_cuda(torch.zeros(8, dtype=torch.float64), 100)
+    assert not LAUNCHES

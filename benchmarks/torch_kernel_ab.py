@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Time the port's ``segment_sum`` and ``selective_scan`` kernels of one
+source tree on the card, at the main paths' shapes.
+
+    PYTHONPATH=<tree>/src python3 benchmarks/torch_kernel_ab.py --label L
+
+The tree is whichever ``repro_torch`` the path finds, so two commits are
+compared on one card by unpacking the other one (``git archive``) into a
+git-ignored directory and running this script once per tree, in turns
+(parent, change, change, parent), in one call.  Times are CUDA-event
+means: from a CUDA graph of 50 calls (the kernel's own time) and eager
+(the host's launch included).  ``segment_sum`` takes the maps of the
+256-client x 32-OST fleet, one column and the main path's batched forms;
+a tree whose kernel takes one column is timed with one launch a column.
+``selective_scan`` takes one falcon-mamba-7b prefill layer (4 x 3,072 x
+8,192, N = 16, bf16 in).  The fleet's untuned 100-tick engine interval
+is timed on the host clock (synchronized), where the batched sums show
+end to end.  Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def fleet(dev):
+    """``chip_smoke.build_sim``'s 256-client x 32-OST fleet and its
+    workload table."""
+    from chip_smoke import build_sim
+    from repro_torch.pfs.workloads import table_from_sim
+
+    sim = build_sim(256, 32, dev)
+    return sim, table_from_sim(sim)
+
+
+def engine_interval_ms(dev, n: int = 5) -> list:
+    """Host-clock ms of ``n`` untuned 100-tick engine intervals of the
+    fleet, synchronized, after one warm-up interval."""
+    import time
+
+    from repro_torch.pfs.engine_torch import FusedEngine
+
+    sim, (table, wstate) = fleet(dev)
+    engine = FusedEngine(sim.params, sim.topo, table, 100)
+    state, wstate = engine.run_interval(sim.state, wstate)
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, wstate = engine.run_interval(state, wstate)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def segment_sum_times(dev, rng) -> list:
+    from chip_smoke import time_ms, time_ms_graph
+    from repro_torch.kernels.segment_reduce.kernel import segment_sum_cuda
+
+    sim, (table, _) = fleet(dev)
+    maps = {"osc_ost": sim.topo.ost_map, "osc_client": sim.topo.client_map,
+            "entry_row": table.row_map, "entry_osc": table.osc_map}
+    out = []
+    for name, k in (("osc_ost", 1), ("osc_ost", 2), ("osc_client", 1),
+                    ("entry_row", 1), ("entry_osc", 8)):
+        smap = maps[name]
+        v = torch.as_tensor(rng.standard_normal((k, smap.n_entries)),
+                            device=dev)
+        try:
+            segment_sum_cuda(v, smap)
+            run = lambda: segment_sum_cuda(v, smap)  # noqa: E731
+            form = "one launch"
+        except ValueError:      # a kernel of one column
+            rows = list(v)
+            run = lambda: [segment_sum_cuda(r, smap)  # noqa: E731
+                           for r in rows]
+            form = f"{k} launches"
+        out.append(dict(mapping=name, columns=k, form=form,
+                        graph_ms=time_ms_graph(run),
+                        eager_ms=time_ms(run, 200)))
+    return out
+
+
+def selective_scan_times(dev) -> dict:
+    import torch.nn.functional as F
+    from chip_smoke import time_ms
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+
+    b, s, dm, n = 4, 3072, 8192, 16
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    u = F.silu(torch.randn((b, s, dm), generator=g, device=dev)).to(**bf)
+    delta = F.softplus(torch.randn((b, s, dm), generator=g, device=dev)
+                       - 4.0).to(**bf)
+    A = -torch.arange(1, n + 1, device=dev, dtype=torch.float32).repeat(dm, 1)
+    B, C = (torch.randn((b, s, n), generator=g, device=dev).to(**bf)
+            for _ in range(2))
+    D = torch.ones(dm, device=dev)
+    f32 = [t.float() for t in (u, delta, B, C)]
+    return dict(shape=[b, s, dm, n],
+                bf16_ms=time_ms(lambda: selective_scan_cuda(
+                    u, delta, A, B, C, D), 20),
+                f32_ms=time_ms(lambda: selective_scan_cuda(
+                    f32[0], f32[1], A, f32[2], f32[3], D), 20))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--label", required=True)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: no CUDA device")
+    # the tree under test is the first ``repro_torch`` on the path; once
+    # imported, ``chip_smoke`` (its helpers are reused) cannot shadow it
+    import repro_torch
+    sys.path.insert(0, ROOT)
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    rng = np.random.default_rng(args.seed)
+    print(json.dumps(dict(
+        label=args.label, package=repro_torch.__file__, device=smi,
+        segment_sum=segment_sum_times(dev, rng),
+        engine_interval_ms=engine_interval_ms(dev),
+        selective_scan=selective_scan_times(dev))), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

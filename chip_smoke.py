@@ -18,7 +18,11 @@ Phases, in order; any failure exits non-zero:
    the CPU's labels and rows;
 4. kernel checks at the main paths' shapes, each kernel against its
    plain PyTorch version: ``segment_sum`` bit-equal to ``np.bincount``
-   on the four mappings of the fleet topology, the forest kernels within
+   on the four mappings of the fleet topology, one column and the main
+   path's batched forms (two columns on the OST map, eight on the
+   interface map), its bound the larger of the bytes and the longest
+   segment's chain of dependent float64 adds (``add_chain_cuda``'s rate
+   over a long chain, times the segment), the forest kernels within
    1e-5 of the plain margins, ``tree_histogram`` on the bin codes of a
    paper-scale pair (100,000 read + 98,000 write rows resampled from the
    collected ones) at the five level shapes of a depth-5 tree, float64
@@ -33,8 +37,9 @@ Phases, in order; any failure exits non-zero:
    (8,192 interfaces) for 10 intervals of 100 ticks with the model
    trained in phase 3 (or ``--model``), then ``DIALModel.predict_proba``
    of the read model over every interface's Θ; counters zeroed just
-   before each of the two and read just after; then one interval's
-   host-clock breakdown and the device's busy share;
+   before each of the two and read just after; ``segment_sum`` launches
+   per interval and per tick of the engine and of the demand step; then
+   one interval's host-clock breakdown and the device's busy share;
 7. the same tuned fleet at 8 x 4 on the card and on the CPU (plain
    versions): identical θ trajectories, counters within 1e-6;
 8. LM serving: ``serve`` of recurrentgemma-9b, falcon-mamba-7b and
@@ -49,7 +54,9 @@ Phases, in order; any failure exits non-zero:
    shapes, timed beside SDPA for attention (each of its launch forms:
    bf16 prefill on tensor cores, the bf16 split-KV decode, and float32
    prefill and decode on CUDA cores); bf16 is held at atol 3e-2 and each
-   output row within 5% of its RMS; then the smoke configs in
+   output row within 5% of its RMS; the scan's bound counts its
+   exponentials on the SFU at the card's highest SM clock; then the
+   smoke configs in
    float32 on the card and on the CPU (plain versions), the same
    weights: identical greedy tokens, logits within 1e-4.
 
@@ -78,6 +85,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32, outside tensor cores
 F64_OPS_PER_S = 34e12          # H100 SXM float64, outside tensor cores
+SFU_PER_CLOCK_PER_SM = 16      # exp2 results (CUDA guide, compute 9.0)
 DEPTH = 5                      # the default GBDTParams' depth
 CLIENTS, OSTS = 256, 32        # 8,192 OSC interfaces
 SECONDS, INTERVAL = 5.0, 0.5   # 10 tuning intervals of 100 ticks
@@ -90,6 +98,15 @@ LEVELS = ((1, False), (1, True), (2, True), (4, True), (8, True))
 
 def log(*a):
     print(*a, flush=True)
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout
+    return float(out.split()[0])
 
 
 def time_ms(fn, iters: int) -> float:
@@ -217,56 +234,101 @@ def assert_forests_match(a, b, what: str, tol: float = 1e-5) -> None:
 # phases
 # ---------------------------------------------------------------------- #
 def check_segment_sum(smaps: dict, rng) -> dict:
+    """``segment_sum`` on the fleet's maps, one column and the engine's
+    and demand step's batched forms, against ``np.bincount``; its bound is
+    the larger of the bytes and the ordered add chain of the map's
+    longest segment."""
     import torch
     from repro_torch.kernels.segment_reduce.kernel import segment_sum_cuda
     from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
+    from repro_torch.kernels.tree_histogram.kernel import add_chain_cuda
 
+    # the order bound's rate: one thread's dependent float64 adds on
+    # registers over a long chain (its launch cost spread thin)
+    dev = next(iter(smaps.values()))[0].ids.device
+    v8 = torch.as_tensor(rng.standard_normal(8), device=dev)
+    n_rate = 1 << 20
+    want = np.cumsum(np.resize(v8.cpu().numpy(), n_rate))[-1]
+    if not float(add_chain_cuda(v8, n_rate)) == float(want):
+        raise AssertionError("add_chain: not the ordered sum")
+    ns_per_add = time_ms(lambda: add_chain_cuda(v8, n_rate), 5) * 1e6 / n_rate
+    log(f"segment_sum order bound: {ns_per_add:.3f} ns per dependent float64 "
+        f"add ({n_rate} adds on registers, one thread)")
     cases = []
-    for name, smap in smaps.items():
+    for name, (smap, k) in smaps.items():
         e, s = smap.n_entries, smap.num_segments
         ids_h = smap.ids.cpu().numpy()
-        v_h = rng.standard_normal(e) * 10.0 ** rng.uniform(-3, 9, size=e)
-        v = torch.as_tensor(v_h, device=smap.ids.device)
-        want = np.bincount(ids_h, weights=v_h, minlength=s)
-        got = segment_sum_cuda(v, smap).cpu().numpy()
+        if not ((ids_h >= 0) & (ids_h < s)).all():
+            raise AssertionError(f"segment_sum[{name}]: ids out of range")
+        v_h = rng.standard_normal((k, e)) * 10.0 ** rng.uniform(-3, 9, (k, e))
+        v = torch.as_tensor(v_h if k > 1 else v_h[0], device=dev)
+        run = lambda: segment_sum_cuda(v, smap)  # noqa: E731
+        got = run()
+        if not torch.equal(got, run()):
+            raise AssertionError(f"segment_sum[{name}]: two launches differ")
+        got = got.cpu().numpy().reshape(k, s)
+        want = np.stack([np.bincount(ids_h, weights=col, minlength=s)
+                         for col in v_h])
         err_oracle = float(np.abs(got - want).max())
         if not np.array_equal(got.view(np.int64), want.view(np.int64)):
             raise AssertionError(f"segment_sum[{name}] is not bit-equal to "
                                  f"np.bincount: max |diff| {err_oracle}")
-        plain = segment_sum_ref(v, smap.ids, s).cpu().numpy()
-        scale = np.bincount(ids_h, weights=np.abs(v_h), minlength=s)
-        err = np.abs(got - plain)
+        plain = lambda: segment_sum_ref(v, smap.ids, s)  # noqa: E731
+        scale = np.stack([np.bincount(ids_h, weights=np.abs(col),
+                                      minlength=s) for col in v_h])
+        err = np.abs(got - plain().cpu().numpy().reshape(k, s))
         if (err > 1e-12 * scale).any():
             raise AssertionError(f"segment_sum[{name}] vs index_add_: "
                                  f"{err.max()} over rtol 1e-12")
+        # one index_add (atomics, no fixed order) onto zeros made ahead
+        zeros = torch.zeros(got.shape if k > 1 else (s,), dtype=torch.float64,
+                            device=dev)
+        library = lambda: zeros.index_add(-1, smap.ids, v)  # noqa: E731
         # the kernel reads each value (8 B) and its CSR position (4 B),
-        # the S + 1 offsets, and writes S doubles; it never reads the ids
-        nbytes = e * (8 + 4) + (s + 1) * 4 + s * 8
+        # the S + 1 offsets, and writes K x S doubles; the order bound is
+        # the longest segment's chain of dependent adds
+        nbytes = k * e * 8 + e * 4 + (s + 1) * 4 + k * s * 8
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_order = smap.max_len * ns_per_add * 1e-6
         case = dict(
-            mapping=name, entries=e, segments=s,
-            ms=time_ms(lambda: segment_sum_cuda(v, smap), 200),
-            plain_ms=time_ms(lambda: segment_sum_ref(v, smap.ids, s), 200),
-            library_ms=time_ms(lambda: torch.bincount(smap.ids, weights=v,
-                                                      minlength=s), 200),
-            bound_ms=max(nbytes / HBM_BYTES_PER_S, e / F32_OPS_PER_S) * 1e3,
+            mapping=name, columns=k, entries=e, segments=s,
+            longest=smap.max_len, ms=time_ms_graph(run),
+            eager_ms=time_ms(run, 200), plain_ms=time_ms_graph(plain),
+            library_ms=time_ms_graph(library),
+            chain_launch_ms=time_ms_graph(
+                lambda: add_chain_cuda(v8, smap.max_len)),
+            bytes_bound_ms=t_bytes, order_bound_ms=t_order,
+            bound_ms=max(t_bytes, t_order),
+            bound_by="bytes" if t_bytes >= t_order else "operations",
             max_abs_err=err_oracle,
             max_abs_err_vs_index_add=float(err.max()))
         cases.append(case)
-        log(f"segment_sum[{name}] E={e} S={s}: bit-equal to np.bincount; "
-            f"|kernel - index_add_| max {err.max():.3e}; "
-            f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
-            f"bincount {case['library_ms']:.4f} ms")
+        log(f"segment_sum[{name}] K={k} E={e} S={s} (longest {smap.max_len})"
+            f": bit-equal to np.bincount, two launches bit-equal; "
+            f"|kernel - index_add_| max {err.max():.3e}; kernel "
+            f"{case['ms'] * 1e3:.2f} us (CUDA graph; eager "
+            f"{case['eager_ms'] * 1e3:.2f} us with the host's launch), plain "
+            f"{case['plain_ms'] * 1e3:.2f} us, index_add "
+            f"{case['library_ms'] * 1e3:.2f} us; bound "
+            f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}: bytes "
+            f"{t_bytes * 1e3:.4f} us, add chain {t_order * 1e3:.3f} us; "
+            f"add_chain_cuda at {smap.max_len} adds, launch included, "
+            f"{case['chain_launch_ms'] * 1e3:.2f} us)")
     head = cases[0]   # the OST mapping: most launches, most skewed
     return dict(name="segment_sum", route="cuda",
                 source="src/repro_torch/csrc/segment_sum.cu",
                 replaces="src/repro/kernels/segment_reduce/kernel.py:27",
                 max_abs_err=max(c["max_abs_err"] for c in cases),
-                tolerance="bit-equal to np.bincount; "
-                "rtol 1e-12 of the segment's sum of |values| vs index_add_",
-                ms=head["ms"], plain_ms=head["plain_ms"],
-                bound_ms=head["bound_ms"], bound_by="bytes",
-                library_ms=head["library_ms"], shape=head["mapping"],
-                cases=cases)
+                tolerance="bit-equal to np.bincount per column; two "
+                "launches bit-equal; rtol 1e-12 of the segment's sum of "
+                "|values| vs index_add_",
+                ms=head["ms"], eager_ms=head["eager_ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                shape=f"{head['mapping']}, K={head['columns']}",
+                timing="kernel, plain and index_add from a CUDA graph of 50 "
+                "calls; eager_ms from 200 calls on the host",
+                ns_per_add=ns_per_add, cases=cases)
 
 
 def check_forest(name, replaces, x, op, feature, threshold, leaf, base):
@@ -667,7 +729,7 @@ def run_phases(seed: int, model_prefix, dev) -> list:
     from repro_torch.kernels.gbdt_forest.ops import pack_fleet_rows, \
         pair_forests
     from repro_torch.pfs.engine_torch import FusedEngine
-    from repro_torch.pfs.state import READ, WRITE
+    from repro_torch.pfs.state import READ, WRITE, engine_step
     from repro_torch.pfs.workloads import table_from_sim
 
     rng = np.random.default_rng(seed)
@@ -681,9 +743,14 @@ def run_phases(seed: int, model_prefix, dev) -> list:
     # 4. kernel checks at the main paths' shapes
     sim = build_sim(CLIENTS, OSTS, dev)
     table, _ = table_from_sim(sim)
+    # the maps with the column counts the main path batches: the engine's
+    # per-OST sums alone and in pairs, the demand step's eight per-wave
+    # interface sums
     kernels = [check_segment_sum(
-        {"osc_ost": sim.topo.ost_map, "osc_client": sim.topo.client_map,
-         "entry_row": table.row_map, "entry_osc": table.osc_map}, rng)]
+        {"osc_ost": (sim.topo.ost_map, 1), "osc_ost x2": (sim.topo.ost_map, 2),
+         "osc_client": (sim.topo.client_map, 1),
+         "entry_row": (table.row_map, 1), "entry_osc": (table.osc_map, 1),
+         "entry_osc x8": (table.osc_map, 8)}, rng)]
     feature, threshold, leaf, base, _, n_features = pair_forests(
         model.read_forest, model.write_forest)
     x, op = pack_fleet_rows(feats[READ], feats[WRITE], n_features)
@@ -746,8 +813,22 @@ def run_phases(seed: int, model_prefix, dev) -> list:
         + "; predict_proba over every interface's Θ: "
         + ", ".join(f"{k}={v}" for k, v in proba_counts.items()))
 
-    # where an interval's time goes (host clock, synchronized)
+    # segment_sum launches: per tuned interval, and per tick of the
+    # engine and of the demand step alone (both pure; results dropped)
     table, wstate = table_from_sim(sim)
+    _, _, step_counts = counted(
+        lambda: engine_step(sim.params, sim.topo, sim.state))
+    _, _, demand_counts = counted(
+        lambda: table.demand_step(sim.params, wstate, sim.state))
+    log(f"segment_sum launches: {counts['segment_sum'] / n_intervals:g} per "
+        f"tuned interval; engine_step {step_counts['segment_sum']} a tick, "
+        f"demand_step {demand_counts['segment_sum']} a tick "
+        f"({table.n_waves} wave(s))")
+    kernels[0]["launches_per_interval"] = counts["segment_sum"] / n_intervals
+    kernels[0]["launches_engine_step"] = step_counts["segment_sum"]
+    kernels[0]["launches_demand_step"] = demand_counts["segment_sum"]
+
+    # where an interval's time goes (host clock, synchronized)
     engine = FusedEngine(sim.params, sim.topo, table,
                          fleet_ticks(sim, INTERVAL))
     torch.cuda.synchronize()
@@ -1165,7 +1246,13 @@ def check_selective_scan(dev) -> dict:
     nbytes = (2 * b * s * dm * 2 + 2 * b * s * n * 2 + dm * n * 4 + dm * 4
               + b * s * dm * 4 + b * dm * n * 4)
     n_ops = b * s * dm * (7 * n + 3)
+    # one exponential a (batch, step, channel, state) on the SFU, 16 a
+    # clock an SM, at the card's highest SM clock
+    n_exp = b * s * dm * n
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock_mhz = max_sm_clock_mhz()
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    t_sfu = n_exp / (SFU_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6)
     entry = dict(name="selective_scan", route="cuda",
                  source="src/repro_torch/csrc/mamba_scan.cu",
                  replaces="src/repro/kernels/mamba_scan/kernel.py:29",
@@ -1173,13 +1260,19 @@ def check_selective_scan(dev) -> dict:
                  "the final state vs the plain version; two launches "
                  "bit-equal",
                  ms=time_ms(run, 20), plain_ms=time_ms(plain, 1),
-                 bound_ms=max(t_bytes, t_ops) * 1e3,
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bound_ms=max(t_bytes, t_ops, t_sfu) * 1e3,
+                 bound_by="bytes" if t_bytes >= max(t_ops, t_sfu)
+                 else "operations",
+                 bytes_bound_ms=t_bytes * 1e3, flops_bound_ms=t_ops * 1e3,
+                 sfu_bound_ms=t_sfu * 1e3, sfu_clock_mhz=clock_mhz, sms=sms,
                  library_ms=None, shape=[b, s, dm, n])
     log(f"selective_scan B={b} S={s} Di={dm} N={n} (bf16 in): |kernel - "
         f"plain| {err:.3e}; kernel {entry['ms']:.4f} ms, plain "
         f"{entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-        f"({entry['bound_by']})")
+        f"({entry['bound_by']}: bytes {t_bytes * 1e3:.4f}, float32 flops "
+        f"{t_ops * 1e3:.4f}, {n_exp:.3e} exponentials at "
+        f"{SFU_PER_CLOCK_PER_SM} a clock on {sms} SMs at {clock_mhz:g} MHz "
+        f"{t_sfu * 1e3:.4f} ms)")
     return entry
 
 

@@ -25,13 +25,15 @@ class SegmentMap:
     ``ids`` are the raw segment ids (int64, what the plain version
     reads); ``order`` is a stable argsort of the ids in range (int32
     positions into the values), ``offsets`` the ``S + 1`` segment starts
-    into ``order`` (int32) -- what the kernel reads.
+    into ``order`` (int32) -- what the kernel reads; ``max_len`` the
+    longest segment (the kernel's chunk size follows it).
     """
 
     ids: torch.Tensor
     order: torch.Tensor
     offsets: torch.Tensor
     num_segments: int
+    max_len: int
 
     @property
     def n_entries(self) -> int:
@@ -45,20 +47,24 @@ class SegmentMap:
         pos = np.nonzero((ids >= 0) & (ids < num_segments))[0]
         kept = ids[pos]
         order = pos[np.argsort(kept, kind="stable")]
+        counts = np.bincount(kept, minlength=num_segments)
         offsets = np.zeros(num_segments + 1, dtype=np.int64)
-        np.cumsum(np.bincount(kept, minlength=num_segments),
-                  out=offsets[1:])
+        np.cumsum(counts, out=offsets[1:])
         to = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
         return cls(ids=to(ids, torch.int64), order=to(order, torch.int32),
                    offsets=to(offsets, torch.int32),
-                   num_segments=int(num_segments))
+                   num_segments=int(num_segments),
+                   max_len=int(counts.max(initial=0)))
 
 
 def segment_sum(values: torch.Tensor, smap: SegmentMap) -> torch.Tensor:
-    """``out[s] = sum(values[i] for i with ids[i] == s)``, float64.
+    """``out[..., s] = sum(values[..., i] for i with ids[i] == s)``,
+    float64, for ``(E,)`` or ``(K, E)`` values: several sums over one map
+    whose inputs are ready together cost one launch.
 
-    On the card: the ordered kernel, bit-equal to ``np.bincount``.  On
-    the CPU: the plain ``index_add_`` version (also bit-equal there).
+    On the card: the ordered kernel, bit-equal to ``np.bincount`` column
+    by column.  On the CPU: the plain ``index_add_`` version (also
+    bit-equal there).
     """
     if values.device.type == "cpu":
         return segment_sum_ref(values, smap.ids, smap.num_segments)

@@ -308,23 +308,24 @@ def engine_step(params: SimParams, topo: SimTopo, state: SimState,
         ctr_rpc_bytes[op] = ctr_rpc_bytes[op] + bytes_out
         disp_num[op] = disp_num[op] + take * now
 
-    # (4) OST setup service + IOPS ceiling
+    # (4) OST setup service + IOPS ceiling, both ops as the rows of one
+    # (2, n_osc) block, so their per-OST setups are one segment sum
     ost_work = ost_sum(setup_work[READ] + setup_work[WRITE])
     cap = dt * p.ost_setup_parallel * dist.iops_scale
     drain_frac_ost = _div_where(cap, ost_work, ost_work > cap, 1.0)
+    work = torch.stack(setup_work)
+    drained = work * drain_frac_ost[osc_ost]
+    per_rpc = p.setup_time(torch.stack(randomness)) + p.rtt
+    setups_done = _div_where(drained, per_rpc, per_rpc > 0, 0.0)
+    ost_setups = ost_sum(setups_done)
+    iops_cap = p.ost_iops * dt * dist.iops_scale
+    iops_frac = _div_where(iops_cap, ost_setups, ost_setups > iops_cap, 1.0)
+    effective = drained * iops_frac[:, osc_ost]
     for op in (READ, WRITE):
-        work = setup_work[op]
-        drained = work * drain_frac_ost[osc_ost]
-        per_rpc = p.setup_time(randomness[op]) + p.rtt
-        setups_done = _div_where(drained, per_rpc, per_rpc > 0, 0.0)
-        ost_setups = ost_sum(setups_done)
-        iops_cap = p.ost_iops * dt * dist.iops_scale
-        iops_frac = _div_where(iops_cap, ost_setups, ost_setups > iops_cap, 1.0)
-        effective = drained * iops_frac[osc_ost]
-        setup_work[op] = work - effective
+        setup_work[op] = work[op] - effective[op]
         ready = torch.minimum(
-            _div_where(effective, per_rpc, per_rpc > 0, 0.0) * avg_size[op],
-            unready[op])
+            _div_where(effective[op], per_rpc[op], per_rpc[op] > 0, 0.0)
+            * avg_size[op], unready[op])
         ready = torch.where(setup_work[op] <= 1e-12, unready[op], ready)
         unready[op] = unready[op] - ready
         ready_b[op] = ready_b[op] + ready
@@ -332,15 +333,16 @@ def engine_step(params: SimParams, topo: SimTopo, state: SimState,
     # (5) bandwidth: OST fair share + congestion decay + NIC cap
     want = ready_b[READ] + ready_b[WRITE]
     queued = unready[READ] + unready[WRITE] + ready_b[READ] + ready_b[WRITE]
-    ost_queued = ost_sum(queued) + dist.bg_bytes
+    active_transfer = torch.where(want > 0,
+                                  active_rpcs[READ] + active_rpcs[WRITE], 0.0)
+    ost_queued, ost_active = ost_sum(torch.stack([queued, active_transfer]))
+    ost_queued = ost_queued + dist.bg_bytes
     eff = torch.where(
         ost_queued > p.ost_buffer_bytes,
         torch.pow(p.ost_buffer_bytes / torch.clamp_min(ost_queued, 1.0),
                   p.congestion_exp),
         1.0)
-    active_transfer = torch.where(want > 0,
-                                  active_rpcs[READ] + active_rpcs[WRITE], 0.0)
-    ost_shares = ost_sum(active_transfer)[osc_ost]
+    ost_shares = ost_active[osc_ost]
     share = _div_where(active_transfer, ost_shares, ost_shares > 0, 0.0)
     ost_bw_eff = p.ost_bandwidth * dist.bw_scale * eff
     # background traffic is served first, shrinking the foreground
@@ -349,9 +351,9 @@ def engine_step(params: SimParams, topo: SimTopo, state: SimState,
     bg_served = torch.minimum(dist.bg_bytes, ost_bw_eff * dt)
     alloc = torch.minimum(
         share * ost_bw_eff[osc_ost] * dt - share * bg_served[osc_ost], want)
-    leftover = (ost_bw_eff * dt - bg_served) - ost_sum(alloc)
     hungry = want - alloc
-    ost_hungry = ost_sum(hungry)
+    ost_alloc, ost_hungry = ost_sum(torch.stack([alloc, hungry]))
+    leftover = (ost_bw_eff * dt - bg_served) - ost_alloc
     bonus_frac = _div_where(leftover, ost_hungry, ost_hungry > 0, 0.0)
     alloc = alloc + hungry * torch.clamp_max(bonus_frac[osc_ost], 1.0)
     nic_cap = p.nic_bandwidth * dist.nic_scale * dt

@@ -269,34 +269,43 @@ class WorkloadTable:
                  + seq * params.readahead_bytes * self.stripe_len)
 
         for k in range(self.n_waves):
-            # ---- closed-loop readers -------------------------------- #
+            # this wave's demand: closed-loop readers, then the writers
+            # that are not blocked (reads leave ``blocked`` untouched)
             is_r = self.read_waves[k] & active
             want_r = torch.minimum(
                 torch.clamp_min(depth - (issued - done_row), 0.0), cap_row)
             want_r = torch.where(is_r & (want_r > 0), want_r, 0.0)
             issued = issued + want_r
             per_e = want_r[e_row] / slen_e
-            per_osc = osc_sum(per_e)
-            pend_read_add = pend_read_add + per_osc
-            # randomness EMA: stripes within a wave are disjoint per op,
-            # so the scatter has at most one contributor per interface
             w_e = torch.clamp_max(per_e / (4 * 2**20), 1.0)
-            factor = 1.0 - osc_sum(0.2 * w_e)
-            contrib = osc_sum((0.2 * w_e) * rand_row_e)
-            rand_r = factor * rand_r + contrib
             inc_e = torch.where(want_r[e_row] > 0,
                                 torch.clamp_min(per_e / req_floor_e, 1.0),
                                 0.0)
-            req_cnt_add[READ] = req_cnt_add[READ] + osc_sum(inc_e)
-            req_bytes_add[READ] = req_bytes_add[READ] + per_osc
-            cache_add = cache_add + osc_sum((1.0 - rand_row_e) * per_e)
-
-            # ---- grant-throttled writers ---------------------------- #
             blocked_any = row_sum(blocked[e_osc].to(F64)) > 0
             goes = self.write_waves[k] & active & ~blocked_any
             want_w = torch.where(goes, cap_row, 0.0)
             per_we = want_w[e_row] / slen_e
-            want_osc = osc_sum(per_we)
+            inc_we = torch.where(per_we > 0,
+                                 torch.clamp_min(per_we / req_floor_e, 1.0),
+                                 0.0)
+            # the wave's eight per-interface sums in one launch
+            (per_osc, w_osc_r, contrib, inc_osc, cache_osc, want_osc, rr_osc,
+             inc_wosc) = osc_sum(torch.stack([
+                 per_e, 0.2 * w_e, (0.2 * w_e) * rand_row_e, inc_e,
+                 (1.0 - rand_row_e) * per_e, per_we,
+                 torch.where(per_we > 0, rand_row_e, 0.0), inc_we]))
+
+            # ---- closed-loop readers -------------------------------- #
+            pend_read_add = pend_read_add + per_osc
+            # randomness EMA: stripes within a wave are disjoint per op,
+            # so the scatter has at most one contributor per interface
+            factor = 1.0 - w_osc_r
+            rand_r = factor * rand_r + contrib
+            req_cnt_add[READ] = req_cnt_add[READ] + inc_osc
+            req_bytes_add[READ] = req_bytes_add[READ] + per_osc
+            cache_add = cache_add + cache_osc
+
+            # ---- grant-throttled writers ---------------------------- #
             room = torch.minimum(params.max_dirty_bytes - dirty,
                                  params.grant_bytes - grant)
             accepted = torch.minimum(torch.clamp_min(want_osc, 0.0),
@@ -305,12 +314,8 @@ class WorkloadTable:
             grant = grant + accepted
             dirty_add = dirty_add + accepted
             w_osc = torch.clamp_max(accepted / (4 * 2**20), 1.0)
-            rr_osc = osc_sum(torch.where(per_we > 0, rand_row_e, 0.0))
             rand_w = (1.0 - 0.2 * w_osc) * rand_w + (0.2 * w_osc) * rr_osc
-            inc_we = torch.where(per_we > 0,
-                                 torch.clamp_min(per_we / req_floor_e, 1.0),
-                                 0.0)
-            req_cnt_add[WRITE] = req_cnt_add[WRITE] + osc_sum(inc_we)
+            req_cnt_add[WRITE] = req_cnt_add[WRITE] + inc_wosc
             req_bytes_add[WRITE] = req_bytes_add[WRITE] + accepted
             submitted = want_osc > 0
             blocked = torch.where(submitted, accepted < want_osc, blocked)

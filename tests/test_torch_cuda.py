@@ -7,7 +7,8 @@ package), so it also runs where only the port is installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the CPU:
-``segment_sum`` bit for bit (and against ``np.bincount``), the forest
+``segment_sum`` bit for bit (and against ``np.bincount``, several columns
+in one launch too), the forest
 margins to 1e-5 (float32, another summation order), ``tree_histogram``
 bit for bit in float64 and within 1e-6 of the largest |cell| in float32
 (two launches bit-equal in both), the tuned fleet's θ trajectory
@@ -23,7 +24,8 @@ each row's RMS): the split-KV decode at split boundaries and GQA groups
 of 1, 2 and 16, the bf16 tensor-core prefill at every head dim with
 ragged, end-aligned and key-less rows; the
 histogram's chunk ring with segments across chunks, more than 32 cells
-and empty bins.
+and empty bins; the selective scan at one step, off its 32-step chunk
+and 64-channel block, at every N.
 """
 
 import numpy as np
@@ -111,6 +113,30 @@ def test_segment_sum_checks_inputs(cuda):
     with pytest.raises(ValueError, match="map on cpu"):
         segment_sum(torch.ones(3, dtype=torch.float64, device=cuda),
                     SegmentMap.build([0, 1, 1], 2, "cpu"))
+
+
+@pytest.mark.parametrize("e,s,k", [(37, 4, 1), (8192, 32, 2), (640, 8192, 8),
+                                   (5000, 4, 3), (5000, 33, 11), (300, 6, 11),
+                                   (0, 5, 3)])
+def test_segment_sum_multi_column_one_launch(cuda, e, s, k):
+    """(K, E) values: one launch, each column bit-equal to np.bincount
+    (segments longer than a chunk, more columns than a warp folds, ids
+    out of range, no entries), two launches bit-equal."""
+    rng = np.random.default_rng(e + s + k)
+    ids = rng.integers(-2, s + 3, size=e)
+    values = rng.standard_normal((k, e)) * 10.0 ** rng.uniform(-3, 9, (k, e))
+    smap = SegmentMap.build(ids, s, cuda)
+    v = torch.as_tensor(values, device=cuda)
+    n0 = LAUNCHES["segment_sum"]
+    got = segment_sum(v, smap)
+    assert LAUNCHES["segment_sum"] == n0 + 1
+    assert got.shape == (k, s)
+    assert torch.equal(got, segment_sum(v, smap))
+    keep = (ids >= 0) & (ids < s)
+    for col in range(k):
+        want = np.bincount(ids[keep], weights=values[col][keep], minlength=s)
+        np.testing.assert_array_equal(got[col].cpu().numpy().view(np.int64),
+                                      want.view(np.int64))
 
 
 @pytest.mark.parametrize("n", [1, 100, 4096])
@@ -546,6 +572,34 @@ def test_mamba_kernel_matches_plain(cuda, dtype, b, s, dm, n):
         selective_scan_cuda(*args[:2], args[2][:, :3].contiguous(),
                             args[3][..., :3].contiguous(),
                             args[4][..., :3].contiguous(), args[5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("b,s,dm", [(1, 1, 64), (2, 45, 100), (1, 70, 99),
+                                    (3, 32, 200)])
+def test_mamba_kernel_chunk_and_block_edges(cuda, dtype, n, b, s, dm):
+    """One step, prompts off the 32-step chunk, channels off the 64-channel
+    block (an odd Dm stages bf16 without cp.async), every N: within 1e-4
+    of the plain version, two launches bit-equal."""
+    g = torch.Generator().manual_seed(b * 1000 + s + dm + n)
+    u = torch.randn((b, s, dm), generator=g)
+    delta = torch.nn.functional.softplus(torch.randn((b, s, dm), generator=g)
+                                         - 2.0)
+    A = -torch.rand((dm, n), generator=g) * n - 0.1
+    B, C = (torch.randn((b, s, n), generator=g) for _ in range(2))
+    D = torch.randn(dm, generator=g)
+    args = [t.to(cuda) for t in (u, delta, A, B, C, D)]
+    for i in (0, 1, 3, 4):
+        args[i] = args[i].to(dtype)
+    n0 = LAUNCHES["selective_scan"]
+    y, h = selective_scan(*args)
+    y2, h2 = selective_scan(*args)
+    assert LAUNCHES["selective_scan"] == n0 + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    plain_y, plain_h = selective_scan(*(t.cpu() for t in args))
+    assert float((y.cpu() - plain_y).abs().max()) < 1e-4
+    assert float((h.cpu() - plain_h).abs().max()) < 1e-4
 
 
 @pytest.mark.parametrize("arch", ARCHS)

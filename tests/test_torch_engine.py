@@ -177,3 +177,35 @@ def test_set_knobs_and_attach_base():
     port.state.ctr_bytes_done[READ, 2] = 5.0
     port.attach(TW.sequential_stream(1, READ, 2**20, ost=0))
     assert port.done_base == [5.0] and port.issued == [0.0]
+
+
+def test_segment_sums_batched_per_tick(monkeypatch):
+    """A tick's reductions go through few segment sums: ``engine_step``
+    5 (its per-OST sums paired where their inputs are ready together),
+    ``demand_step`` 1 + 3 a wave (a wave's eight per-interface sums in
+    one call).  Each call is one kernel launch on the card."""
+    from repro_torch.pfs import state as TS
+    from repro_torch.pfs.state import engine_step
+
+    calls = {"engine": [], "demand": []}
+
+    def counting(key, fn):
+        def wrapped(values, smap):
+            calls[key].append(tuple(values.shape))
+            return fn(values, smap)
+        return wrapped
+
+    monkeypatch.setattr(TS, "segment_sum", counting("engine",
+                                                    TS.segment_sum))
+    monkeypatch.setattr(TW, "segment_sum", counting("demand",
+                                                    TW.segment_sum))
+    _, port = both_sims()
+    tt, tws = TW.table_from_sim(port)
+    demand, _ = tt.demand_step(port.params, tws, port.state)
+    engine_step(port.params, port.topo, port.state, demand)
+    n_osc = port.topo.n_osc
+    assert [s[0] if len(s) == 2 else 1 for s in calls["engine"]] \
+        == [1, 2, 2, 2, 1]
+    assert len(calls["demand"]) == 1 + 3 * tt.n_waves == 7
+    assert calls["demand"].count((8, len(tt.entry_osc))) == tt.n_waves
+    assert all(s[-1] == n_osc for s in calls["engine"])

@@ -1,8 +1,9 @@
 """The port's segment sum against the reference's oracle and Pallas kernel.
 
-The plain float64 version (``index_add_``) must be bit-equal to
-``np.bincount`` on the CPU; the Pallas kernel casts to float32, so it is
-held at rtol 1e-5 (atol 1e-4, the bar of the reference's own test).
+The plain float64 version (``index_add_``, one column or several) must be
+bit-equal to ``np.bincount`` on the CPU, column by column; the Pallas
+kernel casts to float32, so it is held at rtol 1e-5 (atol 1e-4, the bar
+of the reference's own test).
 The CUDA kernel's own checks are in ``test_torch_cuda.py``.
 """
 
@@ -94,3 +95,46 @@ def test_cpu_path_launches_nothing_and_kernel_refuses_cpu():
     assert dict(LAUNCHES) == before
     with pytest.raises(ValueError, match="values on cpu"):
         segment_sum_cuda(torch.ones(3, dtype=torch.float64), smap)
+
+
+# (entries, segments, columns): one, three and eleven columns (more than
+# the kernel's eight a warp), near-empty segments, out-of-range ids, E = 0
+MULTI = [(37, 4, 1), (1024, 8, 3), (640, 8192, 3), (5000, 33, 11),
+         (300, 6, 11), (0, 5, 3)]
+
+
+@pytest.mark.parametrize("e,s,k", MULTI)
+def test_multi_column_plain_bit_equal_to_bincount_and_pallas(e, s, k):
+    rng = np.random.default_rng(e + s + k)
+    ids = rng.integers(-2, s + 3, size=e)
+    values = rng.standard_normal((k, e)) * 10.0 ** rng.uniform(-3, 9, (k, e))
+    smap = SegmentMap.build(ids, s, "cpu")
+    got = segment_sum(torch.as_tensor(values), smap).numpy()
+    assert got.shape == (k, s)
+    keep = (ids >= 0) & (ids < s)
+    for col in range(k):
+        want = np.bincount(ids[keep], weights=values[col][keep], minlength=s)
+        np.testing.assert_array_equal(got[col].view(np.int64),
+                                      want.view(np.int64))
+        # the same column through the 1-D form
+        one = segment_sum(torch.as_tensor(values[col]), smap).numpy()
+        np.testing.assert_array_equal(one.view(np.int64),
+                                      got[col].view(np.int64))
+    if e == 0:
+        np.testing.assert_array_equal(got, np.zeros((k, s)))
+        return
+    small = rng.normal(size=(k, e)).astype(np.float32)
+    got32 = segment_sum(torch.as_tensor(small.astype(np.float64)),
+                        smap).numpy()
+    for col in range(k):
+        pal = np.asarray(pallas_ss(jnp.asarray(small[col]),
+                                   jnp.asarray(np.where(ids < 0, s, ids)), s,
+                                   block_e=256, interpret=True))
+        np.testing.assert_allclose(got32[col], pal, rtol=1e-5, atol=1e-4)
+
+
+def test_segment_map_max_len():
+    assert SegmentMap.build([2, 0, 2, 1, 9, 2, -1], 3, "cpu").max_len == 3
+    assert SegmentMap.build(np.zeros(0, dtype=np.int64), 4, "cpu").max_len \
+        == 0
+    assert SegmentMap.build([5, 6], 3, "cpu").max_len == 0

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's ``segment_sum`` and ``selective_scan`` kernels of one
-source tree on the card, at the main paths' shapes.
+"""Time the port's ``segment_sum``, ``selective_scan``, ``rglru_scan`` and
+forest kernels of one source tree on the card, at the main paths' shapes.
 
     PYTHONPATH=<tree>/src python3 benchmarks/torch_kernel_ab.py --label L
 
@@ -13,9 +13,16 @@ means: from a CUDA graph of 50 calls (the kernel's own time) and eager
 256-client x 32-OST fleet, one column and the main path's batched forms;
 a tree whose kernel takes one column is timed with one launch a column.
 ``selective_scan`` takes one falcon-mamba-7b prefill layer (4 x 3,072 x
-8,192, N = 16, bf16 in).  The fleet's untuned 100-tick engine interval
-is timed on the host clock (synchronized), where the batched sums show
-end to end.  Prints one JSON line.
+8,192, N = 16, bf16 in), ``rglru_scan`` one recurrentgemma-9b prefill
+layer (4 x 3,072 x 4,096, float32, gates as the layer makes them).  The
+forest kernel scores the fleet's rows (every interface x 24
+configurations, packed by the tree's own ``pack_fleet_rows``, so a tree
+that buckets rows to a power of two is timed at its bucket) with a
+read/write pair of the default shape (160 trees, depth 5) whose
+thresholds are the rows' own feature values; the single form takes the
+read forest over every row's first 32 features.  The fleet's untuned
+100-tick engine interval is timed on the host clock (synchronized),
+where the batched sums show end to end.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -114,6 +121,60 @@ def selective_scan_times(dev) -> dict:
                     f32[0], f32[1], A, f32[2], f32[3], D), 20))
 
 
+def rglru_times(dev) -> dict:
+    from chip_smoke import time_ms, time_ms_graph
+    from repro_torch.kernels.rglru_scan.kernel import rglru_cuda
+
+    b, s, w = 4, 3072, 4096
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    x = torch.randn((b, s, w), generator=g, device=dev)
+    lam = torch.log(torch.expm1(torch.linspace(0.35, 0.9, w, device=dev)))
+    r = torch.rand((b, s, w), generator=g, device=dev)
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(lam) * r)
+    run = lambda: rglru_cuda(x, a)  # noqa: E731
+    return dict(shape=[b, s, w], graph_ms=time_ms_graph(run, 20),
+                eager_ms=time_ms(run, 20))
+
+
+def forest_times(dev, rng) -> dict:
+    from chip_smoke import time_ms, time_ms_graph, warmup_features
+    from repro_torch.convert import model_from_numpy
+    from repro_torch.kernels.gbdt_forest.kernel import forest_margin_cuda
+    from repro_torch.kernels.gbdt_forest.ops import pack_fleet_rows, \
+        pair_forests
+    from repro_torch.pfs.state import READ, WRITE
+
+    feats, _ = warmup_features(256, 32, dev)
+    forests = []
+    for op in (READ, WRITE):
+        rows = feats[op].cpu().numpy()
+        feature = rng.integers(0, rows.shape[1], (160, 31))
+        threshold = rows[rng.integers(0, len(rows), (160, 31)), feature]
+        forests.append(dict(
+            feature=feature, threshold=threshold.astype(np.float32),
+            leaf=rng.normal(0.0, 0.1, (160, 32)).astype(np.float32),
+            base_score=0.0, depth=5, n_features=rows.shape[1]))
+    model = model_from_numpy(*forests, device=dev)
+    feature, threshold, leaf, base, depth, n_features = (
+        torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray) else v
+        for v in pair_forests(model.read_forest, model.write_forest))
+    x, op = pack_fleet_rows(feats[READ], feats[WRITE], n_features)
+    rf = model.read_forest
+    x1 = x[:, :rf.n_features].contiguous()
+    base1 = torch.tensor([rf.base_score], dtype=torch.float32, device=dev)
+    runs = {
+        "paired_forest_margin": lambda: forest_margin_cuda(
+            x, op, feature, threshold, leaf, base, depth),
+        "forest_margin": lambda: forest_margin_cuda(
+            x1, None, rf.feature[None], rf.threshold[None], rf.leaf[None],
+            base1, depth)}
+    n_rows = sum(int(feats[o].shape[0]) for o in (READ, WRITE))
+    return {name: dict(rows=n_rows, launch_rows=int(x.shape[0]),
+                       graph_ms=time_ms_graph(run), eager_ms=time_ms(run, 20))
+            for name, run in runs.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", required=True)
@@ -134,7 +195,9 @@ def main() -> int:
         label=args.label, package=repro_torch.__file__, device=smi,
         segment_sum=segment_sum_times(dev, rng),
         engine_interval_ms=engine_interval_ms(dev),
-        selective_scan=selective_scan_times(dev))), flush=True)
+        selective_scan=selective_scan_times(dev),
+        rglru_scan=rglru_times(dev),
+        forest=forest_times(dev, rng))), flush=True)
     return 0
 
 

@@ -22,8 +22,10 @@ Phases, in order; any failure exits non-zero:
    path's batched forms (two columns on the OST map, eight on the
    interface map), its bound the larger of the bytes and the longest
    segment's chain of dependent float64 adds (``add_chain_cuda``'s rate
-   over a long chain, times the segment), the forest kernels within
-   1e-5 of the plain margins, ``tree_histogram`` on the bin codes of a
+   over a long chain, times the segment), the forest kernels on the
+   fleet's exact rows (every interface x 24 configurations, no bucket)
+   within 1e-5 of the plain margins, two launches bit-equal, timed from
+   a CUDA graph, ``tree_histogram`` on the bin codes of a
    paper-scale pair (100,000 read + 98,000 write rows resampled from the
    collected ones) at the five level shapes of a depth-5 tree, float64
    bit-equal and float32 within 1e-6 of the largest |cell|, two
@@ -332,10 +334,15 @@ def check_segment_sum(smaps: dict, rng) -> dict:
 
 
 def check_forest(name, replaces, x, op, feature, threshold, leaf, base):
+    import torch
     from repro_torch.kernels.gbdt_forest.kernel import forest_margin_cuda
     from repro_torch.kernels.gbdt_forest.ref import paired_forest_margin_ref
 
-    got = forest_margin_cuda(x, op, feature, threshold, leaf, base, DEPTH)
+    run = lambda: forest_margin_cuda(  # noqa: E731
+        x, op, feature, threshold, leaf, base, DEPTH)
+    got = run()
+    if not torch.equal(got, run()):
+        raise AssertionError(f"{name}: two launches differ")
     plain = paired_forest_margin_ref(x, op, feature, threshold, leaf, base,
                                      DEPTH)
     err = float((got - plain).abs().max())
@@ -349,17 +356,18 @@ def check_forest(name, replaces, x, op, feature, threshold, leaf, base):
     b_bytes, b_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     entry = dict(
         name=name, route="cuda", source="src/repro_torch/csrc/gbdt_forest.cu",
-        replaces=replaces, max_abs_err=err, tolerance="atol 1e-5 on margins",
-        ms=time_ms(lambda: forest_margin_cuda(x, op, feature, threshold, leaf,
-                                              base, DEPTH), 20),
+        replaces=replaces, max_abs_err=err, tolerance="atol 1e-5 on "
+        "margins; two launches bit-equal",
+        ms=time_ms_graph(run), eager_ms=time_ms(run, 20),
         plain_ms=time_ms(lambda: paired_forest_margin_ref(
             x, op, feature, threshold, leaf, base, DEPTH), 3),
         bound_ms=max(b_bytes, b_ops) * 1e3,
         bound_by="bytes" if b_bytes >= b_ops else "operations",
-        library_ms=None, shape=[n, f])
+        library_ms=None, shape=[n, f],
+        timing="ms from a CUDA graph of 50 calls; eager_ms from 20 calls")
     log(f"{name} N={n} F={f}: |kernel - plain| max {err:.3e}; kernel "
-        f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
-        f"{entry['bound_ms']:.4f} ms")
+        f"{entry['ms']:.4f} ms (graph; eager {entry['eager_ms']:.4f}), "
+        f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms")
     return entry
 
 
@@ -755,8 +763,7 @@ def run_phases(seed: int, model_prefix, dev) -> list:
         model.read_forest, model.write_forest)
     x, op = pack_fleet_rows(feats[READ], feats[WRITE], n_features)
     log(f"fleet rows: {feats[READ].shape[0]} read + {feats[WRITE].shape[0]} "
-        f"write = {feats[READ].shape[0] + feats[WRITE].shape[0]}, bucketed "
-        f"to {x.shape[0]}")
+        f"write = {x.shape[0]}, scored as they are (no bucket)")
     to = lambda a: torch.as_tensor(a, device=dev)
     kernels.append(check_forest(
         "paired_forest_margin", "src/repro/kernels/gbdt_forest/kernel.py:96",

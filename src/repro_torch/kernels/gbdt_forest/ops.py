@@ -3,9 +3,11 @@
 :func:`pair_forests` / :func:`_pad_forest` are numpy copies of the
 reference's (``repro/kernels/gbdt_forest/ops.py``), bit-equal to it:
 depth and tree padding that changes no prediction.  The fleet predictor
-reproduces ``make_fleet_predictor``: power-of-two row bucketing (floor
-32), zero-padded feature columns, ``op = 0`` on padding rows and a
-float32 sigmoid clipped at +-30.
+reproduces ``make_fleet_predictor``'s scores: zero-padded feature
+columns, one launch over the read rows then the write rows, and a
+float32 sigmoid clipped at +-30.  It scores the exact rows: the
+reference's power-of-two row bucket bounds XLA's recompiles, which
+PyTorch does not have.
 """
 
 from __future__ import annotations
@@ -94,23 +96,15 @@ def pair_forests(read_forest, write_forest):
     return feature, threshold, leaf, base, depth, n_features
 
 
-def _round_up_pow2(n: int, floor: int = 32) -> int:
-    cap = floor
-    while cap < n:
-        cap *= 2
-    return cap
-
-
 def pack_fleet_rows(x_read: torch.Tensor, x_write: torch.Tensor,
                     n_features: int):
-    """One ``(cap, n_features)`` float32 batch and its ``(cap,)`` int32
-    forest selector: read rows, then write rows, then zero rows with
-    ``op = 0`` up to the power-of-two ``cap`` (floor 32)."""
+    """One ``(nr + nw, n_features)`` float32 batch and its int32 forest
+    selector: the read rows (``op = 0``), then the write rows
+    (``op = 1``), feature columns zero-padded to ``n_features``."""
     nr, nw = x_read.shape[0], x_write.shape[0]
-    cap = _round_up_pow2(nr + nw)
     dev = x_read.device
-    x = torch.zeros((cap, n_features), dtype=torch.float32, device=dev)
-    op = torch.zeros(cap, dtype=torch.int32, device=dev)
+    x = torch.zeros((nr + nw, n_features), dtype=torch.float32, device=dev)
+    op = torch.zeros(nr + nw, dtype=torch.int32, device=dev)
     x[:nr, :x_read.shape[1]] = x_read
     x[nr:nr + nw, :x_write.shape[1]] = x_write
     op[nr:nr + nw] = 1
@@ -120,8 +114,8 @@ def pack_fleet_rows(x_read: torch.Tensor, x_write: torch.Tensor,
 def make_fleet_predictor(read_forest, write_forest, device):
     """The fleet scorer ``(X_read, X_write) -> (p_read, p_write)``.
 
-    Both ops' rows go into one zero-padded, power-of-two bucketed batch
-    with a per-row forest selector and are scored in a single launch.
+    Both ops' rows go into one batch with a per-row forest selector and
+    are scored in a single launch.
     Inputs and outputs are float32 tensors on ``device``.
     """
     feature, threshold, leaf, base, depth, n_features = pair_forests(
@@ -137,6 +131,6 @@ def make_fleet_predictor(read_forest, write_forest, device):
         x, op = pack_fleet_rows(x_read, x_write, n_features)
         p = sigmoid32(paired_forest_margin(x, op, feature, threshold, leaf,
                                            base, depth))
-        return p[:nr], p[nr:nr + nw]
+        return p[:nr], p[nr:]
 
     return predict

@@ -9,7 +9,9 @@ package), so it also runs where only the port is installed:
 Each kernel is held against its plain PyTorch version on the CPU:
 ``segment_sum`` bit for bit (and against ``np.bincount``, several columns
 in one launch too), the forest
-margins to 1e-5 (float32, another summation order), ``tree_histogram``
+margins to 1e-5 (float32, another summation order; at the edges of the
+row tile and the shared-memory layout, mixed ops, depths 1 to 8, one
+tree, and the widest rows it takes), ``tree_histogram``
 bit for bit in float64 and within 1e-6 of the largest |cell| in float32
 (two launches bit-equal in both), the tuned fleet's θ trajectory
 exactly, counters to 1e-6, and an exact GBDT fit on the card equal to
@@ -24,8 +26,10 @@ each row's RMS): the split-KV decode at split boundaries and GQA groups
 of 1, 2 and 16, the bf16 tensor-core prefill at every head dim with
 ragged, end-aligned and key-less rows; the
 histogram's chunk ring with segments across chunks, more than 32 cells
-and empty bins; the selective scan at one step, off its 32-step chunk
-and 64-channel block, at every N.
+and empty bins; the RG-LRU scan off its 32-step stage and 64-channel
+tile, with gates of 0 and 1 and rows staged without bulk copies; the
+selective scan at one step, off its 32-step chunk
+and 128-channel block, at every N.
 """
 
 import numpy as np
@@ -185,6 +189,67 @@ def test_forest_kernel_checks_inputs(cuda):
         forest_margin_cuda(torch.zeros((16, 8), device=cuda),
                            torch.zeros(16, dtype=torch.int64, device=cuda),
                            *args)
+
+
+@pytest.mark.parametrize("n,order,depths,n_trees", [
+    (1, "mixed", (5, 5), 24), (31, "mixed", (5, 3), 17),
+    (700, "sorted", (5, 5), 160), (1500, "mixed", (1, 1), 1),
+    (2000, "sorted", (1, 8), 3), (513, "sorted", (8, 8), 9)])
+def test_forest_kernel_tile_and_forest_edges(cuda, n, order, depths, n_trees):
+    """Rows below one tile and off it, blocks whose rows mix op 0 and 1
+    (random ops, or read rows then write rows with the boundary inside a
+    block), depth 1, a pair padded to depth 8, one tree: the paired and
+    single forms within 1e-5 of the CPU plain version, two launches
+    bit-equal."""
+    rng = np.random.default_rng(n + n_trees)
+    m = model_from_numpy(random_forest(rng, 32, n_trees, depths[0]),
+                         random_forest(rng, 36, n_trees, depths[1]),
+                         device="cpu")
+    feature, threshold, leaf, base, depth, n_features = ops.pair_forests(
+        m.read_forest, m.write_forest)
+    x = (rng.standard_normal((n, n_features))
+         * 10.0 ** rng.uniform(-1, 3, n_features)).astype(np.float32)
+    op = (rng.integers(0, 2, size=n) if order == "mixed"
+          else np.arange(n) >= n * 3 // 7).astype(np.int32)
+    cpu = [torch.as_tensor(a) for a in (x, op, feature, threshold, leaf,
+                                        base)]
+    card = [t.to(cuda) for t in cpu]
+    got = forest_margin_cuda(*card, depth)
+    assert torch.equal(got, forest_margin_cuda(*card, depth))
+    want = ops.paired_forest_margin(*cpu, depth)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    one = lambda ts: [t[:1].contiguous() for t in ts]  # noqa: E731
+    got = forest_margin_cuda(card[0], None, *one(card[2:]), depth)
+    assert torch.equal(got, forest_margin_cuda(card[0], None, *one(card[2:]),
+                                               depth))
+    want = ops.paired_forest_margin(cpu[0], None, *one(cpu[2:]), depth)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+
+
+def test_forest_kernel_widest_rows(cuda):
+    """The widest rows the shared-memory layout takes beside a 160-tree,
+    depth-5 pair (32-row tiles) match the plain version; one feature
+    more raises."""
+    from repro_torch.kernels.gbdt_forest.kernel import (SMEM_LIMIT,
+                                                        forest_layout)
+    forests = 2 * 160 * ((2 ** 5 - 1) * 8 + 2 ** 5 * 4)
+    widest = (SMEM_LIMIT - forests) // (32 * 4)
+    assert forest_layout(2, 160, 5, widest) == (32, forests + widest * 128)
+    rng = np.random.default_rng(11)
+    m = model_from_numpy(random_forest(rng, widest, 160, 5),
+                         random_forest(rng, widest, 160, 5), device="cpu")
+    feature, threshold, leaf, base, depth, _ = ops.pair_forests(
+        m.read_forest, m.write_forest)
+    x = rng.standard_normal((300, widest + 1)).astype(np.float32) * 100.0
+    op = rng.integers(0, 2, size=300).astype(np.int32)
+    cpu = [torch.as_tensor(a) for a in (x[:, :widest].copy(), op, feature,
+                                        threshold, leaf, base)]
+    got = forest_margin_cuda(*(t.to(cuda) for t in cpu), depth)
+    want = ops.paired_forest_margin(*cpu, depth)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+    with pytest.raises(ValueError, match="shared memory"):
+        forest_margin_cuda(torch.as_tensor(x, device=cuda),
+                           *(t.to(cuda) for t in cpu[1:]), depth)
 
 
 def _fleet_sim(device):
@@ -546,6 +611,39 @@ def test_rglru_kernel_matches_plain(cuda, b, s, w):
     assert float((got - want).abs().max()) < 1e-4
 
 
+@pytest.mark.parametrize("b,s,w,offset", [
+    (1, 1, 64, 0), (2, 17, 100, 0), (1, 33, 4097, 0), (3, 70, 130, 0),
+    (1, 96, 64, 0), (2, 40, 128, 1)])
+def test_rglru_kernel_stage_and_tile_edges(cuda, b, s, w, offset):
+    """Prompts below and off the 32-step stage, widths off the 64-channel
+    tile, batch 1, whole steps and channels with gates of exactly 0 (a
+    reset) and 1 (a carry); rows that are not 16-byte granules (W % 4 !=
+    0, or tensors 4 bytes past a boundary) stage with plain loads.
+    Within 1e-4 + 1e-4 |h| of the CPU plain version, two launches
+    bit-equal."""
+    rng = np.random.default_rng(b * 1000 + s + w)
+    x = rng.standard_normal((b, s, w)).astype(np.float32)
+    a = rng.uniform(0.0, 1.0, (b, s, w)).astype(np.float32)
+    a[:, ::5] = 0.0
+    a[:, 2::7] = 1.0
+    a[..., 1::9] = 1.0
+    want = rglru_ref(torch.as_tensor(x), torch.as_tensor(a))
+
+    def on_card(v):        # contiguous, ``offset`` floats into its buffer
+        buf = torch.empty(v.size + offset, dtype=torch.float32, device=cuda)
+        buf[offset:] = torch.as_tensor(v.ravel(), device=cuda)
+        return buf[offset:].view(v.shape)
+
+    xd, ad = on_card(x), on_card(a)
+    assert xd.is_contiguous() and xd.data_ptr() % 16 == 4 * offset
+    n0 = LAUNCHES["rglru_scan"]
+    got = rglru(xd, ad)
+    assert torch.equal(got, rglru(xd, ad))
+    assert LAUNCHES["rglru_scan"] == n0 + 2
+    err = (got.cpu() - want).abs() - 1e-4 * want.abs()
+    assert float(err.max()) <= 1e-4
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,dm,n", [(2, 32, 128, 8), (1, 33, 256, 16),
                                       (4, 512, 8192, 16)])
@@ -577,11 +675,12 @@ def test_mamba_kernel_matches_plain(cuda, dtype, b, s, dm, n):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [4, 8, 16])
 @pytest.mark.parametrize("b,s,dm", [(1, 1, 64), (2, 45, 100), (1, 70, 99),
-                                    (3, 32, 200)])
+                                    (3, 32, 200), (1, 45, 257)])
 def test_mamba_kernel_chunk_and_block_edges(cuda, dtype, n, b, s, dm):
-    """One step, prompts off the 32-step chunk, channels off the 64-channel
-    block (an odd Dm stages bf16 without cp.async), every N: within 1e-4
-    of the plain version, two launches bit-equal."""
+    """One step, prompts off the 32-step chunk, channels off the
+    128-channel block (an odd Dm stages bf16 without cp.async, in a
+    second and third block too), every N: within 1e-4 of the plain
+    version, two launches bit-equal."""
     g = torch.Generator().manual_seed(b * 1000 + s + dm + n)
     u = torch.randn((b, s, dm), generator=g)
     delta = torch.nn.functional.softplus(torch.randn((b, s, dm), generator=g)

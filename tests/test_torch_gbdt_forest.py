@@ -63,9 +63,6 @@ def test_pair_forests_bit_equal_to_reference(forests):
                         ref_ops._pad_forest(f.feature, f.threshold, f.leaf,
                                             f.depth, 6, 30)):
             np.testing.assert_array_equal(a, b)
-    assert ops._round_up_pow2(0) == 32 and ops._round_up_pow2(33) == 64
-    assert ops._round_up_pow2(196608) == ref_ops._round_up_pow2(196608) \
-        == 262144
 
 
 @pytest.mark.parametrize("n", [24, 100, 513])
@@ -113,12 +110,15 @@ def test_fleet_predictor_matches_reference(forests):
     got_r, got_w = model.score_fleet(torch.as_tensor(xr), torch.as_tensor(xw))
     np.testing.assert_allclose(got_r.numpy(), want_r, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got_w.numpy(), want_w, rtol=1e-5, atol=1e-6)
-    # bucketing: 120 rows -> 128, write rows after read rows, op 0 padding
+    # exact rows (no power-of-two bucket): read rows, then write rows,
+    # read rows' missing feature columns zero
     x, op = ops.pack_fleet_rows(torch.as_tensor(xr), torch.as_tensor(xw), 36)
-    assert tuple(x.shape) == (128, 36) and op.dtype == torch.int32
-    assert op[:48].sum() == 0 and (op[48:120] == 1).all() \
-        and op[120:].sum() == 0
-    assert (x[:48, 32:] == 0).all() and (x[120:] == 0).all()
+    assert tuple(x.shape) == (120, 36) and op.dtype == torch.int32
+    assert op[:48].sum() == 0 and (op[48:] == 1).all()
+    assert (x[:48, 32:] == 0).all()
+    np.testing.assert_array_equal(x[:48, :32].numpy(), xr)
+    np.testing.assert_array_equal(x[48:].numpy(), xw)
+    assert got_r.shape == (48,) and got_w.shape == (72,)
     empty = torch.zeros((0, 32))
     assert model.score_fleet(empty, torch.zeros((0, 36)))[0].shape == (0,)
 

@@ -25,7 +25,9 @@ Phases, in order; any failure exits non-zero:
    over a long chain, times the segment), the forest kernels on the
    fleet's exact rows (every interface x 24 configurations, no bucket)
    within 1e-5 of the plain margins, two launches bit-equal, timed from
-   a CUDA graph, ``tree_histogram`` on the bin codes of a
+   a CUDA graph (the paired form also at the fused loop's row order,
+   every interface's 24 rows under its own op), ``tree_histogram`` on
+   the bin codes of a
    paper-scale pair (100,000 read + 98,000 write rows resampled from the
    collected ones) at the five level shapes of a depth-5 tree, float64
    bit-equal and float32 within 1e-6 of the largest |cell|, two
@@ -37,13 +39,22 @@ Phases, in order; any failure exits non-zero:
    ``torch.profiler`` for the kernel's device time;
 6. the tuned fleet: ``run_fleet`` on a 256-client x 32-OST PFSSim
    (8,192 interfaces) for 10 intervals of 100 ticks with the model
-   trained in phase 3 (or ``--model``), then ``DIALModel.predict_proba``
-   of the read model over every interface's Θ; counters zeroed just
-   before each of the two and read just after; ``segment_sum`` launches
-   per interval and per tick of the engine and of the demand step; then
-   one interval's host-clock breakdown and the device's busy share;
+   trained in phase 3 (or ``--model``), then from fresh sims built the
+   same way ``run_fleet(backend="torch-fused")``, the fused loop, eager
+   (``graph=False``) and with each interval a CUDA-graph replay, then
+   ``DIALModel.predict_proba`` of the read model over every interface's
+   Θ; counters zeroed just before each of the four and read just after
+   (the graphed run's launches are those one captured interval holds
+   times the replays); θ trajectories identical across the three fleet
+   runs, graph bit-equal to eager, every state field within 1e-6 of the
+   host run's; ms per interval of each, the capture and instantiate
+   time, and a replayed run's ms per interval and device busy share
+   (``torch.profiler``); ``segment_sum`` launches per interval and per
+   tick of the engine and of the demand step; then one host interval's
+   breakdown and the device's busy share;
 7. the same tuned fleet at 8 x 4 on the card and on the CPU (plain
-   versions): identical θ trajectories, counters within 1e-6;
+   versions), host loop and fused loop: identical θ trajectories,
+   counters within 1e-6;
 8. LM serving: ``serve`` of recurrentgemma-9b, falcon-mamba-7b and
    gemma2-2b at their full published configs (width and depth, bf16,
    random weights from the seed), 4 prompts of 3,072 tokens and 32
@@ -176,9 +187,9 @@ def build_sim(n_clients: int, n_osts: int, device):
 
 
 def warmup_features(n_clients: int, n_osts: int, device):
-    """Two intervals of the scenario, then every interface's feature rows
-    against all of Θ for each op: ``{op: (rows*|Θ|, dim) float32}``, and
-    each interface's op model."""
+    """Two intervals of the scenario, then the feature rows against all
+    of Θ, ``{op: (rows*|Θ|, dim) float32}``: of the interfaces whose op
+    model it is, and of every interface; and each interface's op."""
     import torch
     from repro_torch.core.config_space import SPACE
     from repro_torch.core.metrics import fleet_feature_matrix, snapshot_all
@@ -204,7 +215,7 @@ def warmup_features(n_clients: int, n_osts: int, device):
     every = {op: fleet_feature_matrix(snaps, op,
                                       torch.arange(sim.n_osc, device=device),
                                       theta) for op in (READ, WRITE)}
-    return feats, every
+    return feats, every, ops
 
 
 def auc(scores: np.ndarray, labels: np.ndarray) -> float:
@@ -333,7 +344,8 @@ def check_segment_sum(smaps: dict, rng) -> dict:
                 ns_per_add=ns_per_add, cases=cases)
 
 
-def check_forest(name, replaces, x, op, feature, threshold, leaf, base):
+def check_forest(name, replaces, x, op, feature, threshold, leaf, base,
+                 label: str = ""):
     import torch
     from repro_torch.kernels.gbdt_forest.kernel import forest_margin_cuda
     from repro_torch.kernels.gbdt_forest.ref import paired_forest_margin_ref
@@ -365,7 +377,7 @@ def check_forest(name, replaces, x, op, feature, threshold, leaf, base):
         bound_by="bytes" if b_bytes >= b_ops else "operations",
         library_ms=None, shape=[n, f],
         timing="ms from a CUDA graph of 50 calls; eager_ms from 20 calls")
-    log(f"{name} N={n} F={f}: |kernel - plain| max {err:.3e}; kernel "
+    log(f"{name}{label} N={n} F={f}: |kernel - plain| max {err:.3e}; kernel "
         f"{entry['ms']:.4f} ms (graph; eager {entry['eager_ms']:.4f}), "
         f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms")
     return entry
@@ -419,6 +431,110 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def fused_check(fleet, sim, fused: dict) -> None:
+    """The 8,192-interface check: the host loop's θ trajectory, the fused
+    loop's eager and graphed ones identical; graph bit-equal to eager
+    (decision records with their probabilities, every state field);
+    every state field of the graphed run within 1e-6 (relative, floor 1)
+    of the host run's."""
+    import torch
+
+    want = trajectory(fleet)
+    for name, run in fused.items():
+        if trajectory(run["fleet"]) != want:
+            raise AssertionError(f"{sim.n_osc} interfaces: the fused loop's "
+                                 f"({name}) θ trajectory differs from the "
+                                 "host loop's")
+    eager, graph = fused["eager"], fused["graph"]
+    for a, b in zip(eager["fleet"].decisions, graph["fleet"].decisions):
+        for f in dataclasses.fields(a.decisions):
+            if not torch.equal(getattr(a.decisions, f.name),
+                               getattr(b.decisions, f.name)):
+                raise AssertionError(f"graph vs eager: decision {f.name} "
+                                     "differs")
+    for f in dataclasses.fields(eager["sim"].state):
+        a = getattr(eager["sim"].state, f.name)
+        b = getattr(graph["sim"].state, f.name)
+        if not (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b):
+            raise AssertionError(f"graph vs eager: state {f.name} differs")
+    worst, exact = 0.0, True
+    for f in dataclasses.fields(sim.state):
+        a = getattr(sim.state, f.name)
+        if not isinstance(a, torch.Tensor):
+            continue
+        b = getattr(graph["sim"].state, f.name)
+        exact = exact and torch.equal(a, b)
+        a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+        err = float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1.0)))
+        if not err <= 1e-6:
+            raise AssertionError(f"fused vs host loop: {f.name} differs by "
+                                 f"{err}")
+        worst = max(worst, err)
+    probs_equal = all(torch.equal(a.decisions.probs, b.decisions.probs)
+                      for a, b in zip(fleet.decisions,
+                                      graph["fleet"].decisions))
+    log(f"reference check: {sim.n_osc} interfaces, {len(want)} intervals: "
+        f"θ trajectories identical (host loop, fused eager, fused graph; "
+        f"{sum(len(r) for r in fleet.decisions)} decided rows), graph "
+        f"bit-equal to eager, state vs the host loop max rel diff {worst:.3e}"
+        f" (bit-equal: {exact}), probabilities equal to the host loop's: "
+        f"{probs_equal}")
+
+
+def replayed_run(loop, dev, n_intervals: int) -> dict:
+    """The graphed loop once its interval is captured, from a fresh sim:
+    wall ms per interval of a whole run, and one replayed interval's wall
+    time and device busy time (``torch.profiler``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.pfs.workloads import table_from_sim
+
+    sim = build_sim(CLIENTS, OSTS, dev)
+    table, wstate = table_from_sim(sim)
+    loop.run(table, sim.state, wstate, 1)            # capture, this table
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.run(table, sim.state, wstate, n_intervals)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    if loop.last_run["captured_now"]:
+        raise AssertionError("replayed run: the interval was captured again")
+    inputs = loop.prepare(sim.state, wstate, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.advance(table, inputs, 1)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    inputs = loop.prepare(sim.state, wstate, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop.advance(table, inputs, 1)
+        torch.cuda.synchronize()
+    ops = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    out = dict(replayed_run_ms_per_interval=t_run / n_intervals * 1e3,
+               one_replay_wall_ms=t_one * 1e3, busy_ms=None, busy_share=None)
+    if ops:
+        busy = sum(a.device_time_total for a in ops) / 1e3
+        out.update(busy_ms=busy, busy_share=busy / (t_one * 1e3),
+                   device_ops=sum(a.count for a in ops))
+        top = sorted(ops, key=lambda a: -a.device_time_total)[:6]
+        log(f"replayed run: {n_intervals} intervals in {t_run:.3f} s, "
+            f"{out['replayed_run_ms_per_interval']:.2f} ms/interval (copy-in "
+            f"and the records' host transfer included); one replayed "
+            f"interval {t_one * 1e3:.2f} ms wall, device busy {busy:.2f} ms "
+            f"({busy / (t_one * 1e3):.1%}) in {out['device_ops']} device "
+            f"operations; top: " + "; ".join(
+                f"{a.key[:40]} x{a.count} {a.device_time_total / 1e3:.2f} ms"
+                for a in top))
+    else:
+        log(f"replayed run: {n_intervals} intervals in {t_run:.3f} s; one "
+            f"replayed interval {t_one * 1e3:.2f} ms wall; busy share not "
+            "measured (the profiler recorded no device activity)")
+    return out
 
 
 def training_path(seed: int, dev):
@@ -746,7 +862,7 @@ def run_phases(seed: int, model_prefix, dev) -> list:
     if model_prefix:
         model = DIALModel.load(model_prefix, device=dev)
     model_np = {op: forest_to_numpy(model.forest(op)) for op in (READ, WRITE)}
-    feats, every = warmup_features(CLIENTS, OSTS, dev)
+    feats, every, ops_i = warmup_features(CLIENTS, OSTS, dev)
 
     # 4. kernel checks at the main paths' shapes
     sim = build_sim(CLIENTS, OSTS, dev)
@@ -768,6 +884,20 @@ def run_phases(seed: int, model_prefix, dev) -> list:
     kernels.append(check_forest(
         "paired_forest_margin", "src/repro/kernels/gbdt_forest/kernel.py:96",
         x, op, *map(to, (feature, threshold, leaf, base))))
+    # the fused loop's row order: every interface's 24 rows under its
+    # own op, interfaces in order (both forests in every block's rows)
+    m = every[READ].shape[0] // sim.n_osc
+    padded = {op: torch.nn.functional.pad(
+        every[op], (0, n_features - every[op].shape[1])) for op in every}
+    op_rows = ops_i.to(torch.int32).repeat_interleave(m)
+    x_f = torch.where((op_rows == READ)[:, None], padded[READ], padded[WRITE])
+    order = check_forest(
+        "paired_forest_margin", "src/repro/kernels/gbdt_forest/kernel.py:96",
+        x_f, op_rows, *map(to, (feature, threshold, leaf, base)),
+        label=" (fused loop's row order)")
+    kernels[-1]["fused_order"] = {k: order[k] for k in (
+        "ms", "eager_ms", "plain_ms", "bound_ms", "max_abs_err", "shape")}
+    del padded, x_f, op_rows
     rf = model.read_forest
     kernels.append(check_forest(
         "forest_margin", "src/repro/kernels/gbdt_forest/kernel.py:31",
@@ -785,12 +915,23 @@ def run_phases(seed: int, model_prefix, dev) -> list:
         "collect_s", "collect_intervals", "train_s", "auc")}
     torch.cuda.empty_cache()
 
-    # 6. the main path, launches counted only here: the tuned fleet
-    # (segment_sum, paired_forest_margin), then the read model scoring
-    # every interface's Θ (forest_margin), each counted on its own
+    # 6. the main paths, launches counted only here: the tuned fleet
+    # (segment_sum, paired_forest_margin) on the host loop, then the fused
+    # loop eager and replayed as a CUDA graph (each from a fresh sim built
+    # as the first), then the read model scoring every interface's Θ
+    # (forest_margin), each counted on its own
     n_intervals = int(round(SECONDS / INTERVAL))
     fleet, t_fleet, counts = counted(lambda: run_fleet(
         sim, model, seconds=SECONDS, interval=INTERVAL, device=dev))
+    fused = {}
+    for name, graph in (("eager", False), ("graph", None)):
+        sim_f = build_sim(CLIENTS, OSTS, dev)
+        fl, t_f, c_f = counted(lambda: run_fleet(
+            sim_f, model, seconds=SECONDS, interval=INTERVAL, device=dev,
+            backend="torch-fused", graph=graph))
+        check_state(sim_f.state, f"fused loop ({name})")
+        fused[name] = dict(sim=sim_f, fleet=fl, seconds=t_f, counts=c_f,
+                           run=dict(fl.loop.last_run))
     p_space, _, proba_counts = counted(
         lambda: model.predict_proba(READ, every[READ]))
     check_state(sim.state, "main path")
@@ -801,15 +942,27 @@ def run_phases(seed: int, model_prefix, dev) -> list:
     if not bool(torch.isfinite(p_space).all()) \
             or p_space.shape[0] != sim.n_osc * 24:
         raise AssertionError("main path: read-model scores malformed")
-    paths = {"segment_sum": ("run_fleet", counts),
-             "paired_forest_margin": ("run_fleet", counts),
-             "forest_margin": ("DIALModel.predict_proba", proba_counts),
-             "tree_histogram": ("train_models", trained["train_counts"])}
+    fused_check(fleet, sim, fused)
+    graph_run = fused["graph"]["run"]
+    replays = graph_run["replays"]
+    graph_counts = {k: v * replays
+                    for k, v in graph_run["launches_per_replay"].items()}
+    fleet_paths = {"run_fleet": counts,
+                   "run_fleet torch-fused eager": fused["eager"]["counts"],
+                   "run_fleet torch-fused graph (captured x replays)":
+                       graph_counts}
+    paths = {"segment_sum": fleet_paths, "paired_forest_margin": fleet_paths,
+             "forest_margin": {"DIALModel.predict_proba": proba_counts},
+             "tree_histogram": {"train_models": trained["train_counts"]}}
     for k in kernels:
-        k["path"], path_counts = paths[k["name"]]
-        k["launches"] = path_counts.get(k["name"], 0)
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['path']} never launched {k['name']}")
+        by_path = {p: c.get(k["name"], 0) for p, c in paths[k["name"]].items()}
+        k["path"] = ", ".join(by_path)
+        k["launches"] = sum(by_path.values())
+        if len(by_path) > 1:
+            k["launches_by_path"] = by_path
+        for p, c in by_path.items():
+            if c <= 0:
+                raise AssertionError(f"{p} never launched {k['name']}")
     log(f"main path: {sim.n_clients} clients x {sim.n_osts} OSTs = "
         f"{sim.n_osc} interfaces, {n_intervals} intervals x "
         f"{fleet_ticks(sim, INTERVAL)} ticks in {t_fleet:.3f} s: "
@@ -819,6 +972,39 @@ def run_phases(seed: int, model_prefix, dev) -> list:
         + ", ".join(f"{k}={v / n_intervals:g}" for k, v in counts.items())
         + "; predict_proba over every interface's Θ: "
         + ", ".join(f"{k}={v}" for k, v in proba_counts.items()))
+    eager_run = fused["eager"]
+    log(f"fused loop, eager: {eager_run['seconds']:.3f} s, "
+        f"{eager_run['seconds'] / n_intervals * 1e3:.2f} ms/interval (device "
+        f"span {eager_run['run']['device_ms_per_interval']:.2f} ms/interval); "
+        f"launches/interval " + ", ".join(
+            f"{k}={v / n_intervals:g}" for k, v in
+            eager_run["counts"].items()))
+    inst = graph_run["instantiate_s"]
+    log(f"fused loop, graph: {fused['graph']['seconds']:.3f} s with the "
+        f"warm-up interval, capture {graph_run['capture_s']:.3f} s"
+        + (f" and instantiate {inst:.3f} s" if inst is not None else
+           " (instantiate included: this torch captures and instantiates "
+           "in one call)")
+        + f"; replays {graph_run['device_ms_per_interval']:.2f} ms/interval "
+        f"(device span); launches per replay (captured) "
+        + ", ".join(f"{k}={v}" for k, v in
+                    graph_run["launches_per_replay"].items())
+        + f", x {replays} replays; counted in the run (warm-up + capture) "
+        + ", ".join(f"{k}={v}" for k, v in fused["graph"]["counts"].items()))
+    fused_summary = dict(
+        host_ms_per_interval=t_fleet / n_intervals * 1e3,
+        eager_ms_per_interval=eager_run["seconds"] / n_intervals * 1e3,
+        eager_device_ms_per_interval=eager_run["run"][
+            "device_ms_per_interval"],
+        graph_run_s=fused["graph"]["seconds"],
+        graph_device_ms_per_interval=graph_run["device_ms_per_interval"],
+        capture_s=graph_run["capture_s"], instantiate_s=inst,
+        launches_per_replay=graph_run["launches_per_replay"],
+        replays=replays)
+    fused_summary.update(replayed_run(fused["graph"]["fleet"].loop, dev,
+                                      n_intervals))
+    next(k for k in kernels
+         if k["name"] == "paired_forest_margin")["fused_loop"] = fused_summary
 
     # segment_sum launches: per tuned interval, and per tick of the
     # engine and of the demand step alone (both pure; results dropped)
@@ -868,28 +1054,34 @@ def run_phases(seed: int, model_prefix, dev) -> list:
         log("device: busy share not measured (the profiler recorded no "
             "device activity)")
 
-    # 7. the card against the CPU's plain versions, small
+    # 7. the card against the CPU's plain versions, small: the host loop
+    # and the fused loop (a CUDA graph on the card)
     model_cpu = model_from_numpy(model_np[READ], model_np[WRITE],
                                  device="cpu")
-    runs = {}
-    for key, d, m in (("dev", dev, model), ("cpu", "cpu", model_cpu)):
-        small = build_sim(8, 4, d)
-        small.set_knobs(torch.arange(small.n_osc), window_pages=64,
-                        rpcs_in_flight=2)
-        runs[key] = (small, run_fleet(small, m, seconds=3.0, interval=0.5,
-                                      device=d))
-    if trajectory(runs["dev"][1]) != trajectory(runs["cpu"][1]):
-        raise AssertionError("8x4 fleet: θ trajectories differ, card vs CPU")
-    for f in dataclasses.fields(runs["cpu"][0].state):
-        a = getattr(runs["cpu"][0].state, f.name)
-        if isinstance(a, torch.Tensor):
-            a = a.double().numpy()
-            b = getattr(runs["dev"][0].state, f.name).double().cpu().numpy()
-            err = np.max(np.abs(a - b) / np.maximum(np.abs(a), 1.0))
-            if not err <= 1e-6:
-                raise AssertionError(f"8x4 fleet: {f.name} differs by {err}")
-    log("reference check: 8x4 fleet on the card == CPU plain versions "
-        f"({sum(len(r) for r in runs['cpu'][1].decisions)} decided rows)")
+    for backend in ("torch", "torch-fused"):
+        runs = {}
+        for key, d, m in (("dev", dev, model), ("cpu", "cpu", model_cpu)):
+            small = build_sim(8, 4, d)
+            small.set_knobs(torch.arange(small.n_osc), window_pages=64,
+                            rpcs_in_flight=2)
+            runs[key] = (small, run_fleet(small, m, seconds=3.0,
+                                          interval=0.5, device=d,
+                                          backend=backend))
+        what = f"8x4 fleet ({backend})"
+        if trajectory(runs["dev"][1]) != trajectory(runs["cpu"][1]):
+            raise AssertionError(f"{what}: θ trajectories differ, card vs "
+                                 "CPU")
+        for f in dataclasses.fields(runs["cpu"][0].state):
+            a = getattr(runs["cpu"][0].state, f.name)
+            if isinstance(a, torch.Tensor):
+                a = a.double().numpy()
+                b = getattr(runs["dev"][0].state,
+                            f.name).double().cpu().numpy()
+                err = np.max(np.abs(a - b) / np.maximum(np.abs(a), 1.0))
+                if not err <= 1e-6:
+                    raise AssertionError(f"{what}: {f.name} differs by {err}")
+        log(f"reference check: {what} on the card == CPU plain versions "
+            f"({sum(len(r) for r in runs['cpu'][1].decisions)} decided rows)")
 
     return kernels
 

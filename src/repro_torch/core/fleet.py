@@ -13,6 +13,12 @@
 
 The host reads the device twice per decided interval: the gate mask
 (to size the feature batches) and the decision record.
+``run_fleet(backend="torch-fused")`` runs the same decisions without
+either read: the whole run on the device
+(:class:`~repro_torch.pfs.loop_torch.FusedLoop`, each interval one CUDA
+graph replay on the card), the records read once at its end, then
+adopted by the agent (:meth:`FleetAgent.ingest_fused`) so that host
+ticks can continue where it stopped.
 
 Decentralization is kept: every row is built from that interface's own
 counters, and no decision reads another interface's state.
@@ -28,13 +34,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.config_space import SPACE, ConfigSpace
-from repro_torch.core.metrics import fleet_feature_matrix, snapshot_all
+from repro_torch.core.metrics import (FleetSnapshot, fleet_feature_matrix,
+                                      snapshot_all)
 from repro_torch.core.model import DIALModel
 from repro_torch.core.tuner import (FleetDecisions, TunerParams,
                                     conditional_score_greedy_batch)
 from repro_torch.pfs.engine_torch import FusedEngine
 from repro_torch.pfs.state import F64, READ, WRITE
-from repro_torch.pfs.stats import FleetStats, probe_all
+from repro_torch.pfs.stats import FleetStats, probe_all, stack_stats
 from repro_torch.pfs.workloads import sync_workloads_from_table, table_from_sim
 
 
@@ -60,6 +67,41 @@ class SimFleetPort:
 
 
 @dataclasses.dataclass
+class LoopFleetPort:
+    """Adapter lifting a per-interface port
+    (:class:`~repro_torch.core.agent.ClientPort`) to the fleet surface:
+    probes and knob writes loop over its interfaces on the host, the
+    rest of the tick runs batched."""
+
+    port: object
+
+    def osc_ids(self) -> torch.Tensor:
+        return torch.as_tensor(list(self.port.osc_ids()), dtype=torch.int64)
+
+    def probe_all(self) -> FleetStats:
+        ids = self.osc_ids()
+        return stack_stats([self.port.probe(o) for o in ids.tolist()], ids)
+
+    def set_knobs_many(self, osc_ids, window_pages, rpcs_in_flight) -> None:
+        ids = torch.atleast_1d(torch.as_tensor(osc_ids)).cpu()
+        ws = torch.as_tensor(window_pages).cpu().expand(ids.shape)
+        rs = torch.as_tensor(rpcs_in_flight).cpu().expand(ids.shape)
+        for o, w, r in zip(ids.tolist(), ws.tolist(), rs.tolist()):
+            self.port.set_knobs(o, w, r)
+
+
+def as_fleet_port(port):
+    """Lift a port to the fleet surface (as it is if it already is one;
+    a simulator client's port reads the simulator's tensors directly)."""
+    if hasattr(port, "probe_all"):
+        return port
+    if hasattr(port, "sim") and hasattr(port, "client"):
+        return SimFleetPort(port.sim, torch.as_tensor(
+            port.osc_ids(), dtype=torch.int64, device=port.sim.device))
+    return LoopFleetPort(port)
+
+
+@dataclasses.dataclass
 class FleetTickResult:
     """What one fleet tick decided, row-aligned over decided rows, as
     host (CPU) tensors."""
@@ -70,6 +112,11 @@ class FleetTickResult:
 
     def __len__(self) -> int:
         return self.oscs.shape[0]
+
+    def as_list(self) -> list:
+        """Per-interface records ``[(osc, op, TuneDecision), ...]``."""
+        return [(int(self.oscs[i]), int(self.ops[i]), self.decisions.one(i))
+                for i in range(len(self))]
 
 
 def empty_tick_result(n_configs: int = len(SPACE)) -> FleetTickResult:
@@ -100,7 +147,9 @@ class FleetAgent:
         device=None,
     ):
         self.device = resolve_device(device)
-        for what, dev in (("sim", port.sim.device), ("model", model.device)):
+        self._prev = port.probe_all()
+        for what, dev in (("port", self._prev.bytes_done.device),
+                          ("model", model.device)):
             if dev != self.device:
                 raise ValueError(f"FleetAgent on {self.device}: {what} on "
                                  f"{dev}")
@@ -113,11 +162,10 @@ class FleetAgent:
         self.min_volume = min_volume_bytes
         self.warmup = warmup_intervals
         self._ticks = 0
-        self.oscs = port.osc_ids()
+        self.oscs = port.osc_ids().to(self.device)
         self.n = self.oscs.shape[0]
         self._theta_feats = torch.as_tensor(space.as_features(),
                                             device=self.device)
-        self._prev = port.probe_all()
         self._hist: collections.deque = collections.deque(maxlen=k + 1)
         self.decisions: list = []
 
@@ -182,28 +230,82 @@ class FleetAgent:
         self.decisions.append(result)
         return result
 
+    def ingest_fused(self, result) -> None:
+        """Adopt a :class:`~repro_torch.pfs.loop_torch.FusedLoopResult` as
+        this agent's history: one decision record per interval (aligned
+        as :meth:`tick`'s), the probe re-read from the port, and the
+        snapshot ring refilled from the run's final one, so further host
+        ticks decide exactly as if every interval had run here."""
+        self.decisions.extend(result.decisions)
+        self._ticks += result.n_intervals
+        st = self.port.probe_all()
+        self._prev = st
+        if result.hist is None:
+            return                              # an untuned run
+        hr, hw, hrv, hwv = result.hist          # (k+1, n_all, ...) rings
+        rows = self.oscs                        # this agent's subset
+        kp1 = hr.shape[0]
+        # ring slots older than the run are still the zero placeholders
+        for j in range(kp1 - min(result.n_intervals, kp1), kp1):
+            age = kp1 - 1 - j                   # intervals before now
+            self._hist.append(FleetSnapshot(
+                t=st.t - age * result.interval_seconds,
+                dt=result.interval_seconds, oscs=rows,
+                read=hr[j][rows], write=hw[j][rows],
+                read_volume=hrv[j][rows], write_volume=hwv[j][rows]))
+
 
 def run_fleet(sim, model: DIALModel, oscs=None, seconds: float = 10.0,
               interval: float = 0.5, tuner_params: TunerParams | None = None,
-              backend: str = "torch", device=None) -> FleetAgent:
+              backend: str = "torch", device=None,
+              graph: bool | None = None) -> FleetAgent:
     """Drive the simulator with one fleet agent over ``oscs`` (default
     all interfaces).
 
-    ``backend="torch"`` (the only one) is the counterpart of the
-    reference's ``"jax"`` backend: the attached workloads are frozen
-    into a table, each interval advances ``interval / tick`` engine
-    ticks on the device (:class:`FusedEngine`), then the agent ticks.
+    The attached workloads are frozen into a table, and each interval
+    advances ``interval / tick`` engine ticks on the device.
+
+    * ``backend="torch"``, the counterpart of the reference's ``"jax"``:
+      :class:`FusedEngine` runs each interval's ticks, then the agent
+      ticks on the host;
+    * ``backend="torch-fused"``, the counterpart of ``"jax-fused"``: the
+      whole run, decisions included, in one
+      :class:`~repro_torch.pfs.loop_torch.FusedLoop` (``graph`` is its
+      :meth:`~repro_torch.pfs.loop_torch.FusedLoop.advance`'s: ``None``
+      replays each interval as a CUDA graph on the card); the agent then
+      ingests the run.  The loop is kept as ``fleet.loop``.
+
+    Decisions and knob trajectories are the same on both.
     """
-    if backend != "torch":
+    if backend not in ("torch", "torch-fused"):
         raise ValueError(f"unknown engine backend {backend!r}")
+    if graph is not None and backend != "torch-fused":
+        raise ValueError("graph= applies to backend='torch-fused' only")
     fleet = FleetAgent(SimFleetPort(sim, oscs), model,
                        tuner_params=tuner_params, device=device)
+    fleet.loop = None
     steps_per_interval = max(int(round(interval / sim.params.tick)), 1)
     n_intervals = int(round(seconds / interval))
     table, wstate = table_from_sim(sim)
-    engine = FusedEngine(sim.params, sim.topo, table, steps_per_interval)
-    for _ in range(n_intervals):
-        sim.state, wstate = engine.run_interval(sim.state, wstate)
-        fleet.tick()
+    if backend == "torch":
+        engine = FusedEngine(sim.params, sim.topo, table, steps_per_interval)
+        for _ in range(n_intervals):
+            sim.state, wstate = engine.run_interval(sim.state, wstate)
+            fleet.tick()
+    else:
+        from repro_torch.pfs.loop_torch import FusedLoop
+
+        fleet.loop = FusedLoop(
+            sim.params, sim.topo, steps_per_interval, model,
+            space=fleet.space, tuner_params=fleet.tuner_params, k=fleet.k,
+            min_volume_bytes=fleet.min_volume,
+            warmup_intervals=fleet.warmup)
+        tune_mask = torch.zeros(sim.n_osc, dtype=torch.bool,
+                                device=fleet.device)
+        tune_mask[fleet.oscs] = True
+        result = fleet.loop.run(table, sim.state, wstate, n_intervals,
+                                tune_mask=tune_mask, graph=graph)
+        sim.state, wstate = result.state, result.wstate
+        fleet.ingest_fused(result)
     sync_workloads_from_table(sim, wstate)
     return fleet

@@ -96,10 +96,24 @@ def _log2_knob(x: torch.Tensor) -> torch.Tensor:
     return torch.where(m == 0.5, (e - 1).to(F64), torch.log2(x))
 
 
-def snapshot_all(prev: FleetStats, cur: FleetStats) -> FleetSnapshot:
-    """The designed metrics of every probed interface for one interval:
-    two probes differenced in float64, in the reference's op order."""
-    dt = max(cur.t - prev.t, 1e-9)
+def snapshot_arrays(prev, cur):
+    """The tensor core of :func:`snapshot_all` (the reference's
+    ``snapshot_arrays``): two probes differenced in float64, in the
+    reference's op order.
+
+    ``prev`` / ``cur`` expose the :class:`FleetStats` field surface (a
+    :class:`FleetStats`, or the fused loop's ``Probe``); their clock
+    ``t`` is a float or a 0-dim tensor.  ``dt`` is a 0-dim float64
+    tensor on the counters' device either way, so the host and the
+    fused paths divide by it with the same operation.
+
+    Returns ``(dt, read_mat, write_mat, read_volume, write_volume)``.
+    """
+    dev = cur.bytes_done.device
+    dt = cur.t - prev.t
+    if not torch.is_tensor(dt):
+        dt = torch.tensor(dt, dtype=F64, device=dev)
+    dt = torch.clamp_min(dt, 1e-9)
 
     def safe_div(a, b):
         ok = b > 0
@@ -143,10 +157,17 @@ def snapshot_all(prev: FleetStats, cur: FleetStats) -> FleetSnapshot:
     w.append(diff("grant_integral") / dt / 2**20)
     write_mat = torch.stack(w + knobs, dim=1)
 
-    return FleetSnapshot(t=cur.t, dt=dt, oscs=cur.oscs,
-                         read=read_mat, write=write_mat,
-                         read_volume=diff("bytes_done", READ),
-                         write_volume=diff("bytes_done", WRITE))
+    return (dt, read_mat, write_mat, diff("bytes_done", READ),
+            diff("bytes_done", WRITE))
+
+
+def snapshot_all(prev: FleetStats, cur: FleetStats) -> FleetSnapshot:
+    """The designed metrics of every probed interface for one interval
+    (:func:`snapshot_arrays` on two host-clock probes)."""
+    _, read_mat, write_mat, read_vol, write_vol = snapshot_arrays(prev, cur)
+    return FleetSnapshot(t=cur.t, dt=max(cur.t - prev.t, 1e-9),
+                         oscs=cur.oscs, read=read_mat, write=write_mat,
+                         read_volume=read_vol, write_volume=write_vol)
 
 
 def fleet_feature_matrix(history: list, op: int, rows: torch.Tensor,

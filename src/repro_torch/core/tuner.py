@@ -32,6 +32,17 @@ class TunerParams:
 
 
 @dataclasses.dataclass
+class TuneDecision:
+    """Algorithm 1's outcome for one interface (host values)."""
+
+    theta: tuple[int, int]
+    changed: bool
+    n_candidates: int
+    probs: torch.Tensor   # (|Θ|,) f(θ, H_t) over the whole space
+    score: float
+
+
+@dataclasses.dataclass
 class FleetDecisions:
     """Algorithm 1 outcomes for a batch of interfaces (row-aligned)."""
 
@@ -48,6 +59,27 @@ class FleetDecisions:
         return FleetDecisions(**{f.name: getattr(self, f.name).to(device)
                                  for f in dataclasses.fields(self)})
 
+    def one(self, i: int) -> TuneDecision:
+        """Row ``i`` as a :class:`TuneDecision`."""
+        return TuneDecision(
+            theta=(int(self.theta[i, 0]), int(self.theta[i, 1])),
+            changed=bool(self.changed[i]),
+            n_candidates=int(self.n_candidates[i]),
+            probs=self.probs[i], score=float(self.score[i]))
+
+
+_GRIDS: dict = {}
+
+
+def theta_grid(space: ConfigSpace, device) -> torch.Tensor:
+    """``space.as_array()`` as a float64 tensor on ``device``, made once
+    a (space, device): a captured interval may not copy from the host."""
+    key = (space, torch.device(device))
+    grid = _GRIDS.get(key)
+    if grid is None:
+        grid = _GRIDS[key] = torch.as_tensor(space.as_array(), device=device)
+    return grid
+
 
 def conditional_score_greedy_batch(
     probs: torch.Tensor,
@@ -60,19 +92,18 @@ def conditional_score_greedy_batch(
 
     ``probs`` is (m, |Θ|) in ``space.configs()`` order, ``ops`` (m,) op
     codes, ``current`` (m, 2) integer θ.  Rows without a survivor carry
-    inf/nan in masked lanes, which the keep mask discards.
+    inf/nan in masked lanes, which the keep mask discards.  Nothing here
+    reads the device from the host, so it runs inside a CUDA graph.
     """
     params = params if params is not None else TunerParams()
     probs = probs.to(F64)
-    dev = probs.device
-    m = probs.shape[0]
-    thetas = torch.as_tensor(space.as_array(), device=dev)   # (M, 2)
+    inf = float("inf")
+    thetas = theta_grid(space, probs.device)           # (M, 2)
     keep = probs > params.tau                          # (m, M)   line 4
     any_keep = keep.any(dim=1)
 
     # MinMax over each row's surviving subset (line 6), masked extrema
     t3 = thetas[None, :, :]                            # (1, M, 2)
-    inf = torch.tensor(float("inf"), dtype=F64, device=dev)
     lo = torch.where(keep[:, :, None], t3, inf).amin(dim=1)
     hi = torch.where(keep[:, :, None], t3, -inf).amax(dim=1)
     span = torch.where(hi - lo > 0, hi - lo, 1.0)
@@ -90,6 +121,5 @@ def conditional_score_greedy_batch(
         theta=theta,
         changed=any_keep & (theta != cur64).any(dim=1),
         n_candidates=keep.sum(dim=1) * any_keep,
-        score=torch.where(any_keep,
-                          scores[torch.arange(m, device=dev), j], 0.0),
+        score=torch.where(any_keep, scores.gather(1, j[:, None])[:, 0], 0.0),
         probs=probs)

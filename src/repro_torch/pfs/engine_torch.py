@@ -4,8 +4,10 @@ The counterpart of the reference's ``FusedEngine``
 (``repro/pfs/engine_jax.py``), which compiles the interval into one
 ``lax.scan``.  Here the interval is a Python loop of ``n_ticks`` over
 device tensors: every tick's reductions launch the ``segment_sum``
-kernel, and nothing syncs with the host.  Capturing the interval as one
-CUDA graph is left for a later change.
+kernel, and nothing syncs with the host.  This eager loop serves the
+host paths (``run_fleet(backend="torch")``, ``collect``); the fused
+tuning loop (:mod:`repro_torch.pfs.loop_torch`) runs the same ticks
+inside an interval it captures as one CUDA graph.
 """
 
 from __future__ import annotations

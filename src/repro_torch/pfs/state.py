@@ -131,10 +131,16 @@ class SimTopo:
 @dataclasses.dataclass
 class SimState:
     """All mutable engine state: knobs, per-op fluid state (2, n), the
-    write path, and the cumulative counters the client can probe."""
+    write path, and the cumulative counters the client can probe.
 
-    now: float
-    tick_index: int
+    The clock (``now``, ``tick_index``) is a Python float and int on the
+    host paths, or 0-dim float64 / int64 tensors on the device (the
+    fused loop's, so that a captured interval reads the time it runs
+    at); :func:`engine_step` does the same float64 operations either way.
+    """
+
+    now: float | torch.Tensor
+    tick_index: int | torch.Tensor
     # --- tunable knobs (DIAL's theta), per OSC, int64 -----------------
     window_pages: torch.Tensor
     rpcs_in_flight: torch.Tensor
@@ -225,7 +231,8 @@ def engine_step(params: SimParams, topo: SimTopo, state: SimState,
 
     formation -> dispatch -> OST drain -> bandwidth -> completion ->
     accounting, as in the reference.  ``disturbance=None`` is the
-    neutral identity.
+    neutral identity.  A tensor clock stays a tensor (see
+    :class:`SimState`), bit-equal to the float clock.
     """
     p = params
     dt = p.tick

@@ -21,7 +21,7 @@ class FleetStats:
     are ``(2, n)``, per-OSC fields ``(n,)``.
     """
 
-    t: float
+    t: float | torch.Tensor         # the state's clock, as it holds it
     oscs: torch.Tensor              # (n,) int64 interface ids
     bytes_done: torch.Tensor        # (2, n) app-visible completed bytes
     rpcs_sent: torch.Tensor
@@ -69,3 +69,19 @@ def probe_all(sim, oscs: torch.Tensor | None = None) -> FleetStats:
     fields = {k: getattr(state, v)[:, oscs] for k, v in _PER_OP.items()}
     fields.update({k: getattr(state, v)[oscs] for k, v in _PER_OSC.items()})
     return FleetStats(t=state.now, oscs=oscs, **fields)
+
+
+def probe(sim, osc: int) -> FleetStats:
+    """One interface's counters: a one-column :class:`FleetStats` (what a
+    per-interface agent reads)."""
+    return probe_all(sim, torch.tensor([int(osc)], device=sim.device))
+
+
+def stack_stats(stats: list, oscs) -> FleetStats:
+    """Join probes of single interfaces (or any columns) into one
+    :class:`FleetStats`, column by column, clock from the first."""
+    fields = {f.name: torch.cat([getattr(s, f.name) for s in stats], dim=-1)
+              for f in dataclasses.fields(FleetStats)
+              if f.name not in ("t", "oscs")}
+    return FleetStats(t=stats[0].t, oscs=torch.as_tensor(
+        oscs, dtype=torch.int64, device=stats[0].bytes_done.device), **fields)

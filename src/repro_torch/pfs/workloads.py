@@ -256,8 +256,12 @@ class WorkloadTable:
         req_bytes_add = [zero_n, zero_n]
         issued = wstate.issued
 
-        phase = torch.fmod(torch.full_like(self.period, state.now),
-                           self.period)
+        # ``now`` is a float or a 0-dim float64 tensor on the device (the
+        # fused loop's clock): the same value broadcast either way
+        now = state.now
+        now_row = (now.expand(self.period.shape) if torch.is_tensor(now)
+                   else torch.full_like(self.period, now))
+        phase = torch.fmod(now_row, self.period)
         active = ((self.duty_cycle >= 1.0)
                   | (phase < self.duty_cycle * self.period)) & self.row_valid
         cap_row = self.n_threads * self.thread_rate * dt

@@ -29,7 +29,11 @@ histogram's chunk ring with segments across chunks, more than 32 cells
 and empty bins; the RG-LRU scan off its 32-step stage and 64-channel
 tile, with gates of 0 and 1 and rows staged without bulk copies; the
 selective scan at one step, off its 32-step chunk
-and 128-channel block, at every N.
+and 128-channel block, at every N.  The fused tuning loop replayed as
+a CUDA graph is held bit for bit against the same interval run eagerly
+on the card (8 x 4, and 32 x 8 with k = 2 and a disturbed schedule),
+against the CPU's plain versions (θ exact, counters to 1e-6), and its
+replayed run and eager interval make no host sync.
 """
 
 import numpy as np
@@ -723,3 +727,146 @@ def test_smoke_serving_on_card_matches_cpu(cuda, arch):
     np.testing.assert_array_equal(card["tokens"], cpu["tokens"])
     for key in ("prefill_logits", "logits"):
         assert float((card[key].cpu() - cpu[key]).abs().max()) < 1e-4
+
+
+# --------------------------------------------------------------------- #
+# the fused tuning loop: each interval one CUDA-graph replay
+# --------------------------------------------------------------------- #
+def _loop_sim(device, n_clients, n_osts):
+    """The smoke's fleet roles at any size: VPIC writers and BDCATS
+    readers striped over 4 OSTs, DLIO readers and a random writer on 1;
+    knobs started small so the tuner moves them."""
+    sim = PFSSim(n_clients, n_osts, device=device)
+    for c in range(n_clients):
+        stripe = tuple((c + j) % n_osts for j in range(min(4, n_osts)))
+        role, k = c % 4, c // 4
+        if role == 0:
+            sim.attach(W.vpic_write(c, dims=1 + k % 3, osts=stripe))
+        elif role == 1:
+            sim.attach(W.bdcats_read(c, ("partial", "strided", "full")[k % 3],
+                                     osts=stripe))
+        elif role == 2:
+            sim.attach(W.dlio_reader(c, ("bert", "megatron")[k % 2],
+                                     n_threads=4, osts=(c % n_osts,)))
+        else:
+            sim.attach(W.random_stream(c, WRITE, 256 * 1024, ost=c % n_osts,
+                                       n_threads=2))
+    sim.set_knobs(np.arange(sim.n_osc), window_pages=64, rpcs_in_flight=2)
+    return sim
+
+
+def _disturbed(sim, n_ticks, rng):
+    """A non-neutral schedule: OST bandwidth and IOPS scaled, background
+    bytes, client NICs scaled, every tick."""
+    from repro_torch.pfs.state import Disturbance
+
+    t = lambda a: torch.as_tensor(a, device=sim.device)  # noqa: E731
+    no, nc = sim.n_osts, sim.n_clients
+    return Disturbance(bw_scale=t(rng.uniform(0.3, 1.2, (n_ticks, no))),
+                       iops_scale=t(rng.uniform(0.5, 1.5, (n_ticks, no))),
+                       bg_bytes=t(rng.uniform(0, 2e6, (n_ticks, no))),
+                       nic_scale=t(rng.uniform(0.5, 1.0, (n_ticks, nc))))
+
+
+@pytest.mark.parametrize("n_clients,n_osts,k,disturbed", [
+    (8, 4, 1, False), (32, 8, 2, True)])
+def test_fused_graph_replay_equals_eager(cuda, n_clients, n_osts, k,
+                                         disturbed):
+    """The replayed interval against the same interval run eagerly on
+    the card: decision records, every state field and the snapshot ring
+    bit-equal, twice (the second run replays without a new capture)."""
+    import dataclasses
+
+    from repro_torch.pfs.loop_torch import FusedLoop
+    from repro_torch.pfs.workloads import table_from_sim
+
+    rng = np.random.default_rng(11)
+    model = model_from_numpy(
+        *(random_forest(rng, feature_dim(op, k), 20, 4)
+          for op in (READ, WRITE)), k=k, device=cuda)
+    sim = _loop_sim(cuda, n_clients, n_osts)
+    table, wstate = table_from_sim(sim)
+    loop = FusedLoop(sim.params, sim.topo, 100, model, k=k)
+    n = 8
+    sched = _disturbed(sim, n * 100, rng) if disturbed else None
+    eager = loop.run(table, sim.state, wstate, n, schedule=sched,
+                     graph=False)
+    assert loop.last_run["graph"] is False
+    for captured in (True, False):
+        got = loop.run(table, sim.state, wstate, n, schedule=sched)
+        assert loop.last_run["graph"] is True
+        assert loop.last_run["captured_now"] is captured
+        assert loop.last_run["launches_per_replay"]["paired_forest_margin"] == 1
+        for key in eager.trace:
+            assert torch.equal(got.trace[key], eager.trace[key]), key
+        for f in dataclasses.fields(eager.state):
+            a, b = getattr(eager.state, f.name), getattr(got.state, f.name)
+            assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), \
+                f.name
+        for a, b in zip(eager.hist + (eager.wstate.issued,),
+                        got.hist + (got.wstate.issued,)):
+            assert torch.equal(a, b)
+    assert any(r.decisions.changed.any() for r in got.decisions)
+    # the caller's state was not advanced by the runs
+    assert sim.state.tick_index == 0
+
+
+def test_fused_graph_on_card_matches_cpu(cuda):
+    """run_fleet(backend="torch-fused") at 8 x 4, the card's replayed
+    graph against the CPU's plain versions: θ trajectories identical,
+    counters within 1e-6; the card launched both kernels, the CPU none."""
+    rng = np.random.default_rng(7)
+    forests = [random_forest(rng, feature_dim(op), 20, 4)
+               for op in (READ, WRITE)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        sim = _fleet_sim(dev)
+        LAUNCHES.clear()
+        fleet = run_fleet(sim, model_from_numpy(*forests, device=dev),
+                          seconds=4.0, interval=0.5, device=dev,
+                          backend="torch-fused")
+        runs[str(dev)] = (sim, fleet, dict(LAUNCHES))
+    (sim_c, fleet_c, launches_c), (sim_d, fleet_d, launches_d) = \
+        runs["cpu"], runs[str(cuda)]
+    traj = lambda fl: [(r.oscs.tolist(), r.ops.tolist(),  # noqa: E731
+                        r.decisions.theta.tolist(),
+                        r.decisions.changed.tolist()) for r in fl.decisions]
+    assert traj(fleet_d) == traj(fleet_c)
+    assert any(r.decisions.changed.any() for r in fleet_d.decisions)
+    assert launches_c == {}
+    assert fleet_d.loop.last_run["graph"] is True
+    per_replay = fleet_d.loop.last_run["launches_per_replay"]
+    assert per_replay["paired_forest_margin"] == 1
+    assert per_replay["segment_sum"] >= 600
+    # counted: the warm-up interval and the capture, not the replays
+    assert launches_d == {k: 2 * v for k, v in per_replay.items()}
+    for f in ("ctr_bytes_done", "ctr_rpcs_sent", "ctr_latency_sum",
+              "ctr_req_bytes", "ctr_pending_integral", "dirty_bytes"):
+        a = getattr(sim_c.state, f).numpy()
+        b = getattr(sim_d.state, f).cpu().numpy()
+        assert np.max(np.abs(a - b) / np.maximum(np.abs(a), 1.0)) <= 1e-6, f
+
+
+def test_fused_replay_and_interval_make_no_host_sync(cuda):
+    """Under ``set_sync_debug_mode("error")`` the replayed run (copy-in,
+    replays, record copies) and the eager interval itself make no call
+    that waits for the device or reads it from the host."""
+    from repro_torch.pfs.loop_torch import FusedLoop
+    from repro_torch.pfs.workloads import table_from_sim
+
+    rng = np.random.default_rng(3)
+    model = model_from_numpy(*(random_forest(rng, feature_dim(op), 20, 4)
+                               for op in (READ, WRITE)), device=cuda)
+    sim = _loop_sim(cuda, 8, 4)
+    table, wstate = table_from_sim(sim)
+    loop = FusedLoop(sim.params, sim.topo, 100, model)
+    loop.run(table, sim.state, wstate, 2)                 # the capture
+    for graph in (True, False):
+        inputs = loop.prepare(sim.state, wstate, 4)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop.advance(table, inputs, 4, graph=graph)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()

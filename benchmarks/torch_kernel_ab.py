@@ -22,7 +22,9 @@ read/write pair of the default shape (160 trees, depth 5) whose
 thresholds are the rows' own feature values; the single form takes the
 read forest over every row's first 32 features.  The fleet's untuned
 100-tick engine interval is timed on the host clock (synchronized),
-where the batched sums show end to end.  Prints one JSON line.
+where the batched sums show end to end, and the fleet's tuned fused
+loop on CUDA graphs (with that forest pair) by its replays' span on
+CUDA events and its wall time.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -137,15 +139,15 @@ def rglru_times(dev) -> dict:
                 eager_ms=time_ms(run, 20))
 
 
-def forest_times(dev, rng) -> dict:
-    from chip_smoke import time_ms, time_ms_graph, warmup_features
+def fleet_model(dev, rng):
+    """The fleet's warm-up feature rows and a read/write forest pair of
+    the default shape (160 trees, depth 5) whose thresholds are the
+    rows' own feature values."""
+    from chip_smoke import warmup_features
     from repro_torch.convert import model_from_numpy
-    from repro_torch.kernels.gbdt_forest.kernel import forest_margin_cuda
-    from repro_torch.kernels.gbdt_forest.ops import pack_fleet_rows, \
-        pair_forests
     from repro_torch.pfs.state import READ, WRITE
 
-    feats, _ = warmup_features(256, 32, dev)
+    feats = warmup_features(256, 32, dev)[0]
     forests = []
     for op in (READ, WRITE):
         rows = feats[op].cpu().numpy()
@@ -155,7 +157,46 @@ def forest_times(dev, rng) -> dict:
             feature=feature, threshold=threshold.astype(np.float32),
             leaf=rng.normal(0.0, 0.1, (160, 32)).astype(np.float32),
             base_score=0.0, depth=5, n_features=rows.shape[1]))
-    model = model_from_numpy(*forests, device=dev)
+    return feats, model_from_numpy(*forests, device=dev)
+
+
+def fused_replay_times(dev, model, n_runs: int = 3,
+                       n_intervals: int = 10) -> dict:
+    """The fleet's tuned fused loop on CUDA graphs (phase 6 of
+    ``chip_smoke.py``): a first run of ``n_intervals`` (the capture, then
+    the replays), then ``n_runs`` runs from the same start; per run the
+    replays' span on CUDA events and the run's wall time (host clock,
+    synchronized), both in ms per interval."""
+    import time
+
+    from repro_torch.pfs.loop_torch import FusedLoop
+
+    sim, (table, wstate) = fleet(dev)
+    loop = FusedLoop(sim.params, sim.topo, 100, model)
+    loop.run(table, sim.state, wstate, n_intervals)
+    first = loop.last_run["device_ms_per_interval"]
+    capture_s = loop.last_run["capture_s"] + (
+        loop.last_run["instantiate_s"] or 0.0)
+    span, wall = [], []
+    for _ in range(n_runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.run(table, sim.state, wstate, n_intervals)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) / n_intervals * 1e3)
+        span.append(loop.last_run["device_ms_per_interval"])
+    return dict(interfaces=sim.n_osc, intervals=n_intervals,
+                capture_s=capture_s, first_run_span_ms=first,
+                span_ms=span, wall_ms=wall)
+
+
+def forest_times(dev, feats, model) -> dict:
+    from chip_smoke import time_ms, time_ms_graph
+    from repro_torch.kernels.gbdt_forest.kernel import forest_margin_cuda
+    from repro_torch.kernels.gbdt_forest.ops import pack_fleet_rows, \
+        pair_forests
+    from repro_torch.pfs.state import READ, WRITE
+
     feature, threshold, leaf, base, depth, n_features = (
         torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray) else v
         for v in pair_forests(model.read_forest, model.write_forest))
@@ -191,13 +232,15 @@ def main() -> int:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
     rng = np.random.default_rng(args.seed)
+    feats, model = fleet_model(dev, rng)
     print(json.dumps(dict(
         label=args.label, package=repro_torch.__file__, device=smi,
         segment_sum=segment_sum_times(dev, rng),
         engine_interval_ms=engine_interval_ms(dev),
+        fused_replay=fused_replay_times(dev, model),
         selective_scan=selective_scan_times(dev),
         rglru_scan=rglru_times(dev),
-        forest=forest_times(dev, rng))), flush=True)
+        forest=forest_times(dev, feats, model))), flush=True)
     return 0
 
 

@@ -71,7 +71,23 @@ Phases, in order; any failure exits non-zero:
    exponentials on the SFU at the card's highest SM clock; then the
    smoke configs in
    float32 on the card and on the CPU (plain versions), the same
-   weights: identical greedy tokens, logits within 1e-4.
+   weights: identical greedy tokens, logits within 1e-4;
+9. the Scenario Lab, with the model phase 3 trained: ``evaluate`` of
+   the 12-scenario catalog (25 policy arms each, 10 s at 0.5 s, 4
+   buckets) on the host path, the fused loop eager, on CUDA graphs and
+   on graphs again (rows identical all four ways, bit for bit; 4
+   buckets and 4 dispatches; the wall time, captures and their seconds
+   and the loop cache's hits and misses of each), then 1,024
+   ``variants`` of noisy_neighbor (8,192 interfaces) through
+   ``run_batch(fused=True)`` for 20 intervals eager, on graphs and on
+   graphs again (graph bit-equal to eager; ms per replayed interval on
+   CUDA events, one replayed interval's busy share under
+   ``torch.profiler``, launches per interval), ``segment_sum`` on the
+   four maps of that batch and of each catalog bucket and the forest on
+   each one's rows against their plain versions, and ``smoke_campaign()`` through ``run_campaign`` on the card and on
+   the CPU (the collected rows and labels identical, forests equal);
+   counters zeroed just before each run and read just after, every
+   number beside the card's name and power limit.
 
 It prints one JSON line of kernel results, the ``nvidia-smi`` name and
 power limit, and as its last line
@@ -483,19 +499,44 @@ def fused_check(fleet, sim, fused: dict) -> None:
         f"{probs_equal}")
 
 
+def profile_replay(loop, table, make_inputs):
+    """One replayed interval of ``loop`` (its graph already captured):
+    its wall time (host clock, synchronized) and, in a second replay
+    under ``torch.profiler``, the device operations it ran.  Returns
+    ``(wall seconds, the profiler's device rows)``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = make_inputs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop.advance(table, inputs, 1)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    if loop.last_run["captured_now"]:
+        raise AssertionError("profiled replay: the interval was captured "
+                             "again")
+    inputs = make_inputs()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop.advance(table, inputs, 1)
+        torch.cuda.synchronize()
+    return t_one, [a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CUDA]
+
+
 def replayed_run(loop, dev, n_intervals: int) -> dict:
     """The graphed loop once its interval is captured, from a fresh sim:
     wall ms per interval of a whole run, and one replayed interval's wall
     time and device busy time (``torch.profiler``)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.pfs.workloads import table_from_sim
 
     sim = build_sim(CLIENTS, OSTS, dev)
     table, wstate = table_from_sim(sim)
-    loop.run(table, sim.state, wstate, 1)            # capture, this table
+    loop.run(table, sim.state, wstate, 1)    # captured if not yet
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loop.run(table, sim.state, wstate, n_intervals)
@@ -503,18 +544,8 @@ def replayed_run(loop, dev, n_intervals: int) -> dict:
     t_run = time.perf_counter() - t0
     if loop.last_run["captured_now"]:
         raise AssertionError("replayed run: the interval was captured again")
-    inputs = loop.prepare(sim.state, wstate, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loop.advance(table, inputs, 1)
-    torch.cuda.synchronize()
-    t_one = time.perf_counter() - t0
-    inputs = loop.prepare(sim.state, wstate, 1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        loop.advance(table, inputs, 1)
-        torch.cuda.synchronize()
-    ops = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    t_one, ops = profile_replay(loop, table,
+                                lambda: loop.prepare(sim.state, wstate, 1))
     out = dict(replayed_run_ms_per_interval=t_run / n_intervals * 1e3,
                one_replay_wall_ms=t_one * 1e3, busy_ms=None, busy_share=None)
     if ops:
@@ -841,8 +872,9 @@ def paper_fit(pair: list, dev) -> dict:
     return out
 
 
-def run_phases(seed: int, model_prefix, dev) -> list:
-    """Phases 3-7 on device ``dev``; returns the kernels' result dicts."""
+def run_phases(seed: int, model_prefix, dev) -> tuple:
+    """Phases 3-7 on device ``dev``; returns the kernels' result dicts
+    and the model that tuned the fleet."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1083,7 +1115,7 @@ def run_phases(seed: int, model_prefix, dev) -> list:
         log(f"reference check: {what} on the card == CPU plain versions "
             f"({sum(len(r) for r in runs['cpu'][1].decisions)} decided rows)")
 
-    return kernels
+    return kernels, model
 
 
 # ---------------------------------------------------------------------- #
@@ -1531,6 +1563,319 @@ def serving_phase(seed: int, dev) -> list:
     return kernels
 
 
+# ---------------------------------------------------------------------- #
+# phase 9: the Scenario Lab
+# ---------------------------------------------------------------------- #
+LAB_SECONDS, LAB_INTERVAL = 10.0, 0.5     # the CLI's defaults
+WIDE_VARIANTS = 1024                      # x 8 interfaces = 8,192
+WIDE_SECONDS = 10.0                       # 20 tuned intervals
+LAB_ROOT = os.path.join(ROOT, "build", "lab_campaign")
+
+
+def add_path(kernel: dict, path: str, count: int) -> None:
+    """Count a lab path's launches into a kernel's row; a path that ran
+    the kernel no time fails the phase."""
+    if count <= 0:
+        raise AssertionError(f"{path} never launched {kernel['name']}")
+    by = kernel.setdefault("launches_by_path",
+                           {kernel["path"]: kernel["launches"]})
+    by[path] = count
+    kernel["launches"] += count
+    kernel["path"] += ", " + path
+
+
+def _first_row_diff(a: list, b: list) -> str:
+    for ra, rb in zip(a, b):
+        for key in ra:
+            if ra[key] != rb.get(key):
+                return (f"{ra['scenario']}.{key}: {ra[key]!r} vs "
+                        f"{rb.get(key)!r}")
+    return f"{len(a)} vs {len(b)} rows"
+
+
+def lab_catalog(model, dev, card: str) -> dict:
+    """The catalog evaluate (12 scenarios x 25 arms, 4 padded buckets) on
+    the host path, the fused loop eager and on CUDA graphs, then on
+    graphs once more: rows identical, launches counted per run."""
+    from repro_torch.lab import batch as LB
+    from repro_torch.lab.evaluate import evaluate
+
+    ways = (("host", False, None), ("fused eager", True, False),
+            ("fused graph", True, None), ("fused graph again", True, None))
+    runs = {}
+    for name, fused, graph in ways:
+        LB.reset_loop_cache_stats()
+        report, secs, counts = counted(lambda: evaluate(
+            model=model, seconds=LAB_SECONDS, interval=LAB_INTERVAL,
+            fused=fused, graph=graph, device=dev))
+        stats = LB.loop_cache_stats()
+        s = report["summary"]
+        if (s["n_scenarios"], s["n_buckets"], s["n_dispatches"]) != (12, 4, 4):
+            raise AssertionError(f"evaluate ({name}): {s['n_scenarios']} "
+                                 f"scenarios, {s['n_buckets']} buckets, "
+                                 f"{s['n_dispatches']} dispatches")
+        for r in report["scenarios"]:
+            if not all(np.isfinite(r[k]) and r[k] > 0 for k in r
+                       if k.endswith("_mbs")):
+                raise AssertionError(f"evaluate ({name}): {r['scenario']} "
+                                     "MB/s not finite and positive")
+        runs[name] = dict(report=report, seconds=secs, counts=counts,
+                          stats=stats)
+        log(f"{card} | lab evaluate ({name}): 12 scenarios x 25 arms, "
+            f"{LAB_SECONDS:g} s at {LAB_INTERVAL} s intervals, 4 buckets, 4 "
+            f"dispatches, in {secs:.3f} s; loop cache hits "
+            f"{stats['hits']}, misses {stats['misses']}; captures "
+            f"{stats['captures']} in {stats['capture_s']:.3f} s; replays "
+            f"{stats['replays']} (device span {stats['replay_device_ms']:.2f} "
+            f"ms); launches counted " + ", ".join(
+                f"{k}={v}" for k, v in counts.items())
+            + ("; replayed " + ", ".join(
+                f"{k}={v}" for k, v in stats["replayed_launches"].items())
+               if stats["replays"] else ""))
+    rows = runs["host"]["report"]["scenarios"]
+    for name in ("fused eager", "fused graph", "fused graph again"):
+        other = runs[name]["report"]["scenarios"]
+        if other != rows:
+            raise AssertionError(
+                f"evaluate ({name}) rows differ from the host path's: "
+                f"{_first_row_diff(rows, other)}")
+    again = runs["fused graph again"]["stats"]
+    if again["captures"] or again["misses"]:
+        raise AssertionError(f"second graphed evaluate: {again['captures']} "
+                             f"captures, {again['misses']} cache misses")
+    s = runs["host"]["report"]["summary"]
+    log(f"{card} | lab evaluate: rows identical across the host path, the "
+        f"fused loop eager and replayed, and a second replayed run (θ, "
+        f"changes, best static θ, MB/s bit for bit); mean DIAL vs default "
+        f"{s['mean_dial_vs_default']:.4f}x, mean fraction of best static "
+        f"{s['mean_dial_frac_of_best_static']:.4f}; changes "
+        + ", ".join(f"{r['scenario']}={r['changes']}" for r in rows))
+    return runs
+
+
+def lab_wide_batch(model, seed: int, dev, card: str) -> tuple:
+    """1,024 variants of noisy_neighbor (8,192 interfaces) through
+    ``run_batch(fused=True)`` for 20 intervals, every element tuned:
+    eager, on graphs (capture), and on graphs again (replays only);
+    graph bit-equal to eager; one replayed interval profiled."""
+    import torch
+
+    from repro_torch.lab import batch as LB
+    from repro_torch.lab.scenarios import build, get_scenario, variants
+
+    built = [build(s) for s in variants(get_scenario("noisy_neighbor"),
+                                        WIDE_VARIANTS, seed=seed)]
+    runs = {}
+    for name, graph in (("eager", False), ("graph", None),
+                        ("graph again", None)):
+        batch = LB.stack_scenarios(built, device=dev)
+        LB.reset_loop_cache_stats()
+        res, secs, counts = counted(lambda: LB.run_batch(
+            batch, model, seconds=WIDE_SECONDS, interval=LAB_INTERVAL,
+            fused=True, graph=graph))
+        check_state(batch.state, f"wide batch ({name})")
+        runs[name] = dict(batch=batch, result=res, seconds=secs,
+                          counts=counts, stats=LB.loop_cache_stats())
+    n_int = int(round(WIDE_SECONDS / LAB_INTERVAL))
+    eager = runs["eager"]
+    for name in ("graph", "graph again"):
+        got = runs[name]
+        for key, v in eager["result"].trace.items():
+            if not torch.equal(v, got["result"].trace[key]):
+                raise AssertionError(f"wide batch ({name}): record {key} "
+                                     "differs from the eager run's")
+        for f in dataclasses.fields(eager["batch"].state):
+            a = getattr(eager["batch"].state, f.name)
+            b = getattr(got["batch"].state, f.name)
+            if not (torch.equal(a, b) if torch.is_tensor(a) else a == b):
+                raise AssertionError(f"wide batch ({name}): {f.name} "
+                                     "differs from the eager run's")
+    decided = int(eager["result"].trace["decided"].sum())
+    changed = int((eager["result"].trace["changed"]
+                   & eager["result"].trace["decided"]).sum())
+    if not changed:
+        raise AssertionError("wide batch: no θ changed")
+    again = runs["graph again"]["stats"]
+    if again["captures"]:
+        raise AssertionError("wide batch: the second graphed run captured")
+    per_replay = {k: v // again["replays"]
+                  for k, v in again["replayed_launches"].items()}
+    ms_replay = again["replay_device_ms"] / again["replays"]
+    batch = runs["graph again"]["batch"]
+    steps = max(int(round(LAB_INTERVAL / batch.params.tick)), 1)
+    loop = LB._cached_loop(batch.params, batch.fleet, steps, model, None)
+    t_one, ops = profile_replay(loop, batch.table, lambda: loop.prepare(
+        batch.state, batch.wstate, 1, schedule=batch.schedule(0, steps)))
+    busy = sum(a.device_time_total for a in ops) / 1e3 if ops else None
+    out = dict(elements=len(batch), interfaces=batch.fleet.n_osc,
+               intervals=n_int, eager_s=eager["seconds"],
+               eager_ms_per_interval=eager["seconds"] / n_int * 1e3,
+               graph_run_s=runs["graph"]["seconds"],
+               capture_s=runs["graph"]["stats"]["capture_s"],
+               replayed_run_s=runs["graph again"]["seconds"],
+               replayed_run_ms_per_interval=(
+                   runs["graph again"]["seconds"] / n_int * 1e3),
+               ms_per_replayed_interval=ms_replay,
+               launches_per_replay=per_replay,
+               one_replay_wall_ms=t_one * 1e3, busy_ms=busy,
+               busy_share=None if busy is None else busy / (t_one * 1e3),
+               decided_rows=decided, changes=changed,
+               eager_counts=eager["counts"],
+               graph_replayed_launches=runs["graph"]["stats"][
+                   "replayed_launches"])
+    log(f"{card} | lab wide batch: {len(batch)} variants of noisy_neighbor "
+        f"= {batch.fleet.n_osc} interfaces, {n_int} tuned intervals; eager "
+        f"{eager['seconds']:.3f} s ({out['eager_ms_per_interval']:.2f} "
+        f"ms/interval); graphed {runs['graph']['seconds']:.3f} s with the "
+        f"warm-up and capture ({out['capture_s']:.3f} s); replayed run "
+        f"{out['replayed_run_s']:.3f} s "
+        f"({out['replayed_run_ms_per_interval']:.2f} ms/interval, wall, "
+        f"copy-in and records included), {ms_replay:.2f} ms per replayed "
+        f"interval (CUDA events); launches per replayed interval "
+        + ", ".join(f"{k}={v}" for k, v in per_replay.items())
+        + f"; one replayed interval {t_one * 1e3:.2f} ms wall, device busy "
+        + ("not measured (no device rows)" if busy is None else
+           f"{busy:.2f} ms ({busy / (t_one * 1e3):.1%}) in "
+           f"{sum(a.count for a in ops)} device operations")
+        + f"; graph bit-equal to eager ({decided} decided rows, {changed} "
+        "θ changes)")
+    return out, batch
+
+
+def lab_campaign(dev, card: str) -> dict:
+    """``smoke_campaign()`` through ``run_campaign`` on the card and on
+    the CPU: the collected rows and labels identical (the datasets'
+    fingerprints: row counts and a hash of X and y), the forests equal."""
+    import shutil
+
+    from repro_torch.lab.campaign import (load_versioned, run_campaign,
+                                          smoke_campaign)
+    from repro_torch.pfs.state import READ, WRITE
+
+    cfg, gbdt = smoke_campaign()
+    shutil.rmtree(LAB_ROOT, ignore_errors=True)
+    (d, model, info), secs, counts = counted(lambda: run_campaign(
+        cfg, out_root=os.path.join(LAB_ROOT, "card"), gbdt_params=gbdt,
+        smoke=True, device=dev))
+    t0 = time.perf_counter()
+    _, model_cpu, info_cpu = run_campaign(
+        cfg, out_root=os.path.join(LAB_ROOT, "cpu"), gbdt_params=gbdt,
+        smoke=True, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    fp, fp_cpu = (i["train_meta"]["dataset"] for i in (info, info_cpu))
+    if fp != fp_cpu or info["positive_rate"] != info_cpu["positive_rate"]:
+        raise AssertionError(f"campaign: the card's collected rows differ "
+                             f"from the CPU's ({fp} vs {fp_cpu})")
+    loaded = load_versioned(os.path.join(LAB_ROOT, "card"), device=dev)
+    for op, name in ((READ, "read"), (WRITE, "write")):
+        assert_forests_match(model.forest(op), model_cpu.forest(op),
+                             f"campaign {name} forest, card vs CPU")
+        assert_forests_match(loaded.forest(op), model.forest(op),
+                             f"campaign {name} forest, saved vs trained")
+    g = cfg.grid
+    cells = 2 * len(g.req_sizes) * len(g.patterns) * len(g.threads)
+    log(f"{card} | lab campaign (smoke grid, {cfg.seconds:g} s, {cells} "
+        f"cells): card {secs:.3f} s, CPU {t_cpu:.3f} s; {info['samples']} "
+        f"samples, rows and labels identical on the card and the CPU "
+        f"(dataset {fp['sha256']}), forests equal, the saved artifact "
+        f"{os.path.relpath(d, ROOT)} loads back; launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    return dict(card_s=secs, cpu_s=t_cpu, samples=info["samples"],
+                dataset=fp, counts=counts)
+
+
+def lab_kernels(model, batch, rng) -> tuple:
+    """``segment_sum`` on the four maps of the wide batch and of each
+    catalog bucket's fleet (one column and the engine's and demand
+    step's batched forms), and the paired forest on each one's rows
+    (every interface x Θ under its own op), against their plain
+    versions, timed as phase 4 times them."""
+    import torch
+
+    from repro_torch.kernels.gbdt_forest.ops import pair_forests
+    from repro_torch.lab.batch import bucket_scenarios
+    from repro_torch.lab.evaluate import catalog_arms
+    from repro_torch.lab.scenarios import SCENARIOS, get_scenario
+
+    dev = batch.device
+    fleets = [("wide", batch)] + [
+        (f"bucket {len(idxs)}x{b.n_osc}", b) for idxs, b in bucket_scenarios(
+            catalog_arms([get_scenario(n) for n in SCENARIOS])[0],
+            device=dev)]
+    maps = {}
+    for tag, b in fleets:
+        maps.update({f"{tag} osc_ost": (b.fleet.ost_map, 1),
+                     f"{tag} osc_ost x2": (b.fleet.ost_map, 2),
+                     f"{tag} osc_client": (b.fleet.client_map, 1),
+                     f"{tag} entry_row": (b.table.row_map, 1),
+                     f"{tag} entry_osc x8": (b.table.osc_map, 8)})
+    seg = check_segment_sum(maps, rng)
+    feature, threshold, leaf, base, _, n_features = pair_forests(
+        model.read_forest, model.write_forest)
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    forests = []
+    for tag, b in fleets:
+        n_osc = b.fleet.n_osc
+        x = to((rng.standard_normal((n_osc * 24, n_features)) * 10.0
+                ** rng.uniform(-1, 3, n_features)).astype(np.float32))
+        op = to(np.repeat(rng.integers(0, 2, n_osc), 24).astype(np.int32))
+        forests.append(dict(fleet=tag, **check_forest(
+            "paired_forest_margin",
+            "src/repro/kernels/gbdt_forest/kernel.py:96", x, op,
+            *map(to, (feature, threshold, leaf, base)),
+            label=f" (lab {tag} rows)")))
+    return seg, forests
+
+
+def lab_phase(model, seed: int, dev, kernels: list, card: str) -> None:
+    """Phase 9, the Scenario Lab, on the model phase 3 trained: the
+    catalog evaluate, the wide batch, the smoke campaign, and the two
+    kernels at the wide batch's and every catalog bucket's shapes;
+    launches go into the kernels' rows by path."""
+    import torch
+
+    rng = np.random.default_rng(seed + 9)
+    by_name = {k["name"]: k for k in kernels}
+    catalog = lab_catalog(model, dev, card)
+    torch.cuda.empty_cache()
+    wide, batch = lab_wide_batch(model, seed, dev, card)
+    seg, forests = lab_kernels(model, batch, rng)
+    del batch
+    torch.cuda.empty_cache()
+    campaign = lab_campaign(dev, card)
+    by_name["segment_sum"]["lab_shapes"] = seg["cases"]
+    by_name["paired_forest_margin"]["lab_shapes"] = [
+        {k: f[k] for k in ("fleet", "ms", "eager_ms", "plain_ms", "bound_ms",
+                           "bound_by", "max_abs_err", "shape")}
+        for f in forests]
+
+    for name in ("host", "fused eager"):
+        for kname in ("segment_sum", "paired_forest_margin"):
+            add_path(by_name[kname], f"lab evaluate {name}",
+                     catalog[name]["counts"].get(kname, 0))
+    graphed = catalog["fused graph"]["stats"]["replayed_launches"]
+    for kname in ("segment_sum", "paired_forest_margin"):
+        add_path(by_name[kname], "lab evaluate graph (captured x replays)",
+                 graphed.get(kname, 0))
+        add_path(by_name[kname], "lab wide batch eager",
+                 wide["eager_counts"].get(kname, 0))
+        add_path(by_name[kname], "lab wide batch graph (captured x replays)",
+                 wide["graph_replayed_launches"].get(kname, 0))
+    add_path(by_name["segment_sum"], "lab campaign",
+             campaign["counts"].get("segment_sum", 0))
+    add_path(by_name["tree_histogram"], "lab campaign",
+             campaign["counts"].get("tree_histogram", 0))
+    by_name["paired_forest_margin"]["lab"] = dict(
+        catalog={name: dict(seconds=r["seconds"], **{
+            k: r["stats"][k] for k in ("hits", "misses", "captures",
+                                       "capture_s", "replays",
+                                       "replay_device_ms")})
+            for name, r in catalog.items()},
+        wide_batch={k: v for k, v in wide.items()
+                    if k not in ("eager_counts", "graph_replayed_launches")},
+        campaign=campaign)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1564,8 +1909,10 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
-    kernels = run_phases(args.seed, args.model, torch.device("cuda"))
+    kernels, model = run_phases(args.seed, args.model, torch.device("cuda"))
     kernels += serving_phase(args.seed, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    lab_phase(model, args.seed, torch.device("cuda"), kernels, smi)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

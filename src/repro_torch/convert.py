@@ -1,7 +1,9 @@
 """Carry the reference's parameters and state across as numpy arrays.
 
 DIAL's parameters are the GBDT forests, the simulator state and the
-frozen workload table.  Each ``*_from_numpy`` function takes plain numpy
+frozen workload table (and, for a batch of scenarios, the reference's
+stacked state and table with a leading B, which become the port's
+block-diagonal fleet).  Each ``*_from_numpy`` function takes plain numpy
 arrays (for example ``{f: getattr(obj, f)}`` of a ``repro`` object) and
 returns the port's object with its tensors on ``device``;
 :func:`forest_to_numpy` carries a forest the port trained back the other
@@ -92,6 +94,57 @@ def table_from_numpy(fields: dict, n_osc: int, n_waves: int, device=None):
     return WorkloadTable.from_arrays(
         {k: np.asarray(v) for k, v in fields.items()}, n_osc=n_osc,
         n_waves=n_waves, device=dev)
+
+
+# --------------------------------------------------------------------- #
+# a batch of scenarios (the reference's stacked arrays, leading B)
+# --------------------------------------------------------------------- #
+def _fleet(a: np.ndarray) -> np.ndarray:
+    """``(B, n)`` -> ``(B * n,)`` and ``(B, 2, n)`` -> ``(2, B * n)``:
+    element b's column ``i`` becomes fleet column ``b * n + i``."""
+    a = np.asarray(a)
+    if a.ndim == 2:
+        return a.reshape(-1)
+    return np.moveaxis(a, 1, 0).reshape(a.shape[1], -1)
+
+
+def batch_state_from_numpy(fields: dict, device=None):
+    """A reference batch's stacked state (every field with a leading B;
+    the clock equal across the batch) as the port's fleet
+    :class:`~repro_torch.pfs.state.SimState` (see
+    :mod:`repro_torch.lab.batch`)."""
+    from repro_torch.pfs.state import SimState
+    out = {}
+    for f in dataclasses.fields(SimState):
+        v = np.asarray(fields[f.name])
+        if f.name in ("now", "tick_index"):
+            out[f.name] = v.reshape(-1)[0].item()
+        else:
+            out[f.name] = _fleet(v)
+    return state_from_numpy(out, device=device)
+
+
+def batch_wstate_from_numpy(fields: dict, device=None):
+    """A reference batch's stacked ``(B, R)`` workload state as the
+    fleet's ``(B * R,)`` :class:`~repro_torch.pfs.workloads.WorkloadState`."""
+    from repro_torch.pfs.workloads import WorkloadState
+    dev = resolve_device(device)
+    return WorkloadState(*(_tensor(np.asarray(fields[f]).reshape(-1), dev)
+                           for f in ("issued", "done_base")))
+
+
+def batch_table_from_numpy(fields: dict, n_osc: int, n_waves: int,
+                           n_clients: int, device=None):
+    """A reference batch's stacked table (every array with a leading B;
+    ``n_osc`` interfaces and ``n_clients`` clients an element) as the
+    fleet's :class:`~repro_torch.pfs.workloads.WorkloadTable`
+    (:meth:`~repro_torch.pfs.workloads.WorkloadTable.block`)."""
+    from repro_torch.pfs.workloads import WorkloadTable
+    a = {k: np.asarray(v) for k, v in fields.items()}
+    tables = [table_from_numpy({k: v[b] for k, v in a.items()}, n_osc=n_osc,
+                               n_waves=n_waves, device="cpu")
+              for b in range(a["op"].shape[0])]
+    return WorkloadTable.block(tables, n_clients, resolve_device(device))
 
 
 # --------------------------------------------------------------------- #

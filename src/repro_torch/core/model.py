@@ -54,6 +54,9 @@ class DIALModel:
                              f"{self.read_forest.device} and "
                              f"{self.write_forest.device}")
         self._fleet_predictor = None
+        # bumped by update_forests: caches keyed on the model (the lab's
+        # fused loops) see the new trees
+        self._version = 0
 
     def update_forests(self, read_forest: DenseForest | None = None,
                        write_forest: DenseForest | None = None) -> None:
@@ -67,6 +70,7 @@ class DIALModel:
         if write_forest is not None:
             self.write_forest = write_forest
         self._fleet_predictor = None
+        self._version += 1
 
     @property
     def device(self) -> torch.device:

@@ -1,0 +1,36 @@
+"""Scenario Lab: batched multi-scenario runs and the fleet-scale
+collect -> train -> evaluate pipeline, on one device.
+
+The port of the reference's ``repro/lab`` batch layer:
+
+    scenarios.py   declarative :class:`ScenarioSpec` (topology, workload
+                   mix, disturbance schedule, seed) and the registry of
+                   named scenarios (the paper setups and beyond-paper
+                   stress scenarios);
+    batch.py       B scenarios as one block-diagonal fleet on the device,
+                   padded into shape buckets where their structures
+                   differ, tuned in-batch by the fleet agent or the fused
+                   loop (each interval one CUDA graph on the card);
+    campaign.py    offline collection on the batch path, training, and
+                   versioned model artifacts;
+    evaluate.py    every scenario under tuned vs default vs best-static
+                   policies, as a JSON + markdown report.
+
+CLI: ``python -m repro_torch.lab {list,campaign,evaluate}`` (``--smoke``
+for the CI-sized runs, ``--device cpu`` for the plain versions).
+"""
+
+from repro_torch.lab.batch import (BatchEngine, BatchPort, ScenarioBatch,
+                                   bucket_scenarios, run_batch,
+                                   stack_scenarios)
+from repro_torch.lab.scenarios import (SCENARIOS, BuiltScenario,
+                                       DisturbanceEvent, ScenarioSpec, build,
+                                       get_scenario, make_schedule,
+                                       scenario_names, variants)
+
+__all__ = [
+    "ScenarioSpec", "DisturbanceEvent", "BuiltScenario", "SCENARIOS",
+    "build", "get_scenario", "scenario_names", "variants", "make_schedule",
+    "ScenarioBatch", "BatchEngine", "BatchPort", "stack_scenarios",
+    "bucket_scenarios", "run_batch",
+]

@@ -46,7 +46,17 @@ its warm-up interval and the capture, not the replays.
 interval makes; times ``last_run["replays"]`` that is what the run
 launched.
 
-Not ported here: the reference's ``batched=``, ``mesh=`` and ``trace=``.
+A batch of scenarios runs as one block-diagonal fleet (the reference's
+``batched=True``, a ``vmap`` of the run; see :mod:`repro_torch.lab.batch`):
+element b's interface ``osc`` is fleet column ``b * n + osc``, so the
+loop is unchanged and :meth:`FusedLoop.run` also takes the batch's
+leading axis: a ``(B, n)`` tune mask and :class:`Intervention`, and a
+``(B, ticks, ...)`` schedule, which it flattens to the fleet's form.
+The captured interval is keyed on the table's content
+(:attr:`WorkloadTable.key`), so a rebuilt batch of the same scenarios
+replays it.
+
+Not ported here: the reference's ``mesh=`` and ``trace=``.
 """
 
 from __future__ import annotations
@@ -92,7 +102,7 @@ class Intervention(NamedTuple):
     Every field enters through ``torch.where`` on masks whose neutral
     values are identities, so :meth:`neutral` reproduces the factual run
     bit for bit.  Fields are ``(n,)`` bool and ``(n, 2)`` int64 numpy
-    arrays or tensors.
+    arrays or tensors, or a batch's ``(B, n)`` and ``(B, n, 2)``.
     """
 
     pin_mask: np.ndarray
@@ -294,8 +304,10 @@ class FusedLoop:
     ``warmup_intervals`` are :class:`~repro_torch.core.fleet.FleetAgent`'s.
     ``tuned=False`` is the lean engine-only run.  The loop runs on the
     topology's device (the model must be there too).  A graph is
-    captured at the first run of a (table, schedule or not, intervention
-    or not) and replayed by every later run with the same ones.
+    captured at the first run of a (table content, schedule or not,
+    intervention or not) and replayed by every later run with the same
+    ones; the loop keeps only its latest graph, so a run with other ones
+    captures anew.
 
     Decentralization is untouched: every interface's decision reads only
     that interface's counters.
@@ -320,7 +332,7 @@ class FusedLoop:
         self.min_volume = float(min_volume_bytes)
         self.warmup = int(warmup_intervals)
         self.tuned = bool(tuned)
-        self._graphs: dict = {}
+        self._graph: tuple | None = None     # (key, table, _Graph)
         self.last_run: dict = {}
         if not self.tuned:
             return
@@ -430,8 +442,11 @@ class FusedLoop:
                 ) -> _Inputs:
         """A run's inputs on the loop's device (the run's host-to-device
         copies; :meth:`advance` makes none).  The clock becomes 0-dim
-        device tensors; the snapshot ring starts at zeros."""
+        device tensors; the snapshot ring starts at zeros.  A batch's
+        leading axis is flattened into the fleet's columns (see the
+        module note); the default tune mask is every real interface."""
         dev = self.device
+        n = self.topo.n_osc
         if intervene is not None and not self.tuned:
             raise ValueError("intervene= requires a tuned loop")
         fields = {f.name: getattr(state, f.name)
@@ -442,13 +457,17 @@ class FusedLoop:
         st = SimState(**fields)
         carry = _Carry(st, wstate)
         if schedule is not None:
+            schedule = schedule.to(dev)
+            if schedule.bw_scale.dim() == 3:        # (B, ticks, ...)
+                schedule = Disturbance(*(
+                    a.transpose(0, 1).reshape(a.shape[1], -1)
+                    for a in _fields(schedule)))
             total = int(n_intervals) * self.steps
             if any(a.shape[0] != total for a in _fields(schedule)):
                 raise ValueError(f"the schedule's ticks are not the run's "
                                  f"{total}")
         if not self.tuned:
             return _Inputs(carry, schedule, None, None)
-        n = self.topo.n_osc
         carry.prev = probe_state(st)
         carry.hist = (torch.zeros((self.k + 1, n, N_READ), dtype=F64,
                                   device=dev),
@@ -457,17 +476,17 @@ class FusedLoop:
                       torch.zeros((self.k + 1, n), dtype=F64, device=dev),
                       torch.zeros((self.k + 1, n), dtype=F64, device=dev))
         carry.tick = torch.zeros((), dtype=I64, device=dev)
-        mask = (torch.ones(n, dtype=torch.bool, device=dev)
-                if tune_mask is None else
-                torch.as_tensor(np.asarray(tune_mask) if not
-                                torch.is_tensor(tune_mask) else tune_mask,
-                                dtype=torch.bool, device=dev))
+        as_dev = lambda a, dt: torch.as_tensor(  # noqa: E731
+            np.asarray(a) if not torch.is_tensor(a) else a, dtype=dt,
+            device=dev)
+        mask = (self.topo.osc_valid() if tune_mask is None
+                else as_dev(tune_mask, torch.bool).reshape(n))
         iv = None
         if intervene is not None:
-            iv = Intervention(*(torch.as_tensor(
-                np.asarray(a) if not torch.is_tensor(a) else a,
-                dtype=dt, device=dev) for a, dt in zip(
-                    intervene, (torch.bool, I64, torch.bool, torch.bool))))
+            iv = Intervention(*(
+                as_dev(a, dt).reshape((n,) + tail) for a, dt, tail in zip(
+                    intervene, (torch.bool, I64, torch.bool, torch.bool),
+                    ((), (2,), (), ()))))
         return _Inputs(carry, schedule, mask, iv)
 
     def _slice(self, schedule: Disturbance | None, i: int):
@@ -566,12 +585,13 @@ class FusedLoop:
             self.last_run = {"graph": False, "replays": 0, "events": events}
             return carry, records
 
-        key = (id(table), inputs.schedule is None, inputs.intervene is None)
-        entry = self._graphs.get(key)
-        captured_now = entry is None
+        key = (table.key, inputs.schedule is None, inputs.intervene is None)
+        captured_now = self._graph is None or self._graph[0] != key
         if captured_now:
-            entry = self._graphs[key] = (table, self._capture(table, inputs))
-        g = entry[1]
+            self._graph = None               # free the old graph first
+            # the entry pins the table: the graph reads its tensors
+            self._graph = (key, table, self._capture(table, inputs))
+        g = self._graph[2]
         for dst, src in zip(g.carry.tensors(), inputs.carry.tensors()):
             dst.copy_(src)
         if g.tune_mask is not None:
@@ -607,9 +627,11 @@ class FusedLoop:
         """Advance ``n_intervals`` of engine + tuning.
 
         ``schedule`` is a whole-run :class:`Disturbance` with a flat
-        leading ``(n_intervals * steps, ...)`` axis; ``tune_mask`` (``n``
-        bools, default all) restricts which interfaces may decide;
-        ``intervene`` applies an :class:`Intervention`.  ``graph`` is
+        leading ``(n_intervals * steps, ...)`` axis (tensors or numpy
+        arrays; a batch's ``(B, n_intervals * steps, ...)``);
+        ``tune_mask`` (``n`` or ``(B, n)`` bools, default every real
+        interface) restricts which interfaces may decide; ``intervene``
+        applies an :class:`Intervention`.  ``graph`` is
         :meth:`advance`'s.  The caller's ``state``/``wstate`` are not
         modified; the records move to the host once, here.
         """

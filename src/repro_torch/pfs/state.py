@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.segment_reduce.ops import SegmentMap, segment_sum
@@ -91,10 +92,31 @@ class Disturbance:
                            bg_bytes=self.bg_bytes[i],
                            nic_scale=self.nic_scale[i])
 
+    def to(self, device) -> "Disturbance":
+        """The same values as float64 tensors on ``device`` (from tensors
+        or from numpy arrays, as :func:`repro_torch.lab.scenarios.
+        make_schedule` builds them)."""
+        return Disturbance(*(
+            torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
+                            dtype=F64, device=device)
+            for a in (self.bw_scale, self.iops_scale, self.bg_bytes,
+                      self.nic_scale)))
+
 
 @dataclasses.dataclass(frozen=True)
 class SimTopo:
-    """Static topology: one OSC per (client, OST) pair, like Lustre LOV."""
+    """Static topology: the (client, OST) -> OSC wiring.
+
+    A directly built topology is dense, one OSC per (client, OST) pair
+    like Lustre LOV (:meth:`dense`).  A batch of scenarios runs as one
+    block-diagonal topology (:meth:`from_wiring`; see
+    :mod:`repro_torch.lab.batch`), so ``n_osc`` is the wiring's length.
+    ``ost_valid`` / ``client_valid`` mark the real slots when a topology
+    was padded up to a ragged-batch shape class (``None``: all real).
+    Phantom slots carry exact arithmetic identities everywhere, so the
+    masks are bookkeeping for the probing and tuning layers; the engine
+    never reads them.
+    """
 
     n_clients: int
     n_osts: int
@@ -103,29 +125,64 @@ class SimTopo:
     ost_map: SegmentMap        # OSC -> OST reduction
     client_map: SegmentMap     # OSC -> client reduction
     neutral: Disturbance       # the identity disturbance of this topology
+    ost_valid: torch.Tensor | None = None     # (n_osts,) bool; None = all
+    client_valid: torch.Tensor | None = None  # (n_clients,) bool; None = all
 
     @property
     def n_osc(self) -> int:
-        return self.n_clients * self.n_osts
+        return self.osc_ost.shape[0]
 
     @property
     def device(self) -> torch.device:
         return self.osc_ost.device
 
     @classmethod
-    def dense(cls, n_clients: int, n_osts: int, device) -> "SimTopo":
-        osc_client = torch.arange(n_clients).repeat_interleave(n_osts)
-        osc_ost = torch.arange(n_osts).repeat(n_clients)
+    def from_wiring(cls, n_clients: int, n_osts: int, osc_client, osc_ost,
+                    device, ost_valid=None,
+                    client_valid=None) -> "SimTopo":
+        """A topology from its ``(n_osc,)`` wiring arrays, the segment
+        maps built once here."""
+        osc_client = np.asarray(osc_client, dtype=np.int64)
+        osc_ost = np.asarray(osc_ost, dtype=np.int64)
+        mask = lambda m: None if m is None else torch.as_tensor(  # noqa: E731
+            np.asarray(m, dtype=bool), device=device)
         return cls(
-            n_clients=n_clients, n_osts=n_osts,
-            osc_client=osc_client.to(device), osc_ost=osc_ost.to(device),
-            ost_map=SegmentMap.build(osc_ost.numpy(), n_osts, device),
-            client_map=SegmentMap.build(osc_client.numpy(), n_clients,
-                                        device),
-            neutral=Disturbance.neutral(n_osts, n_clients, device))
+            n_clients=int(n_clients), n_osts=int(n_osts),
+            osc_client=torch.as_tensor(osc_client, device=device),
+            osc_ost=torch.as_tensor(osc_ost, device=device),
+            ost_map=SegmentMap.build(osc_ost, n_osts, device),
+            client_map=SegmentMap.build(osc_client, n_clients, device),
+            neutral=Disturbance.neutral(n_osts, n_clients, device),
+            ost_valid=mask(ost_valid), client_valid=mask(client_valid))
+
+    @classmethod
+    def dense(cls, n_clients: int, n_osts: int, device, ost_valid=None,
+              client_valid=None) -> "SimTopo":
+        return cls.from_wiring(
+            n_clients, n_osts, np.repeat(np.arange(n_clients), n_osts),
+            np.tile(np.arange(n_osts), n_clients), device,
+            ost_valid=ost_valid, client_valid=client_valid)
 
     def osc_id(self, client: int, ost: int) -> int:
+        """A dense topology's interface of (client, OST)."""
         return client * self.n_osts + ost
+
+    def ost_valid_mask(self) -> torch.Tensor:
+        if self.ost_valid is None:
+            return torch.ones(self.n_osts, dtype=torch.bool,
+                              device=self.device)
+        return self.ost_valid
+
+    def client_valid_mask(self) -> torch.Tensor:
+        if self.client_valid is None:
+            return torch.ones(self.n_clients, dtype=torch.bool,
+                              device=self.device)
+        return self.client_valid
+
+    def osc_valid(self) -> torch.Tensor:
+        """(n_osc,) bool: an interface is real iff both its ends are."""
+        return (self.client_valid_mask()[self.osc_client]
+                & self.ost_valid_mask()[self.osc_ost])
 
 
 @dataclasses.dataclass

@@ -16,6 +16,7 @@ the reference builds them.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -119,6 +120,10 @@ class WorkloadState:
 # per-row float fields of the table, in the reference's order
 _ROW_FLOATS = ("req_size", "randomness", "n_threads", "thread_rate",
                "duty_cycle", "period", "stripe_len")
+_ROW_INTS = ("client", "op", "wave", "entry_row", "entry_osc")
+# every array field, in the reference's order
+_TABLE_FIELDS = ("client", "op") + _ROW_FLOATS + (
+    "wave", "entry_row", "entry_osc", "row_valid")
 
 
 @dataclasses.dataclass
@@ -150,6 +155,7 @@ class WorkloadTable:
     read_waves: tuple          # n_waves x (R,) bool: row in wave k, op READ
     write_waves: tuple         # n_waves x (R,) bool: row in wave k, op WRITE
     names: tuple = ()
+    key: str = ""              # digest of the arrays, n_osc and n_waves
 
     def __len__(self) -> int:
         return self.op.shape[0]
@@ -202,23 +208,105 @@ class WorkloadTable:
     @classmethod
     def from_arrays(cls, arrays: dict, n_osc: int, n_waves: int, device,
                     names: tuple = ()) -> "WorkloadTable":
-        """Freeze numpy table arrays onto ``device`` with their maps."""
-        t = {f: torch.as_tensor(np.asarray(arrays[f], dtype=np.float64),
-                                device=device) for f in _ROW_FLOATS}
-        for f in ("client", "op", "wave", "entry_row", "entry_osc"):
-            t[f] = torch.as_tensor(np.asarray(arrays[f], dtype=np.int64),
-                                   device=device)
-        t["row_valid"] = torch.as_tensor(
-            np.asarray(arrays["row_valid"], dtype=bool), device=device)
+        """Freeze numpy table arrays onto ``device`` with their maps.
+
+        ``key`` digests the arrays, so two tables with the same key
+        compute the same demand (the fused loop reuses a captured
+        interval for either).
+        """
+        a = {f: np.ascontiguousarray(arrays[f], dtype=np.float64)
+             for f in _ROW_FLOATS}
+        a.update({f: np.ascontiguousarray(arrays[f], dtype=np.int64)
+                  for f in _ROW_INTS})
+        a["row_valid"] = np.ascontiguousarray(arrays["row_valid"], dtype=bool)
+        digest = hashlib.blake2b(f"{n_osc},{n_waves}".encode(),
+                                 digest_size=16)
+        for f in _TABLE_FIELDS:
+            digest.update(f"{f}{a[f].shape}".encode())
+            digest.update(a[f].tobytes())
+        t = {f: torch.as_tensor(v, device=device) for f, v in a.items()}
         r = t["op"].shape[0]
         in_wave = [t["wave"] == k for k in range(n_waves)]
         return cls(
             **t, n_osc=int(n_osc), n_waves=int(n_waves),
-            row_map=SegmentMap.build(arrays["entry_row"], r, device),
-            osc_map=SegmentMap.build(arrays["entry_osc"], n_osc, device),
+            row_map=SegmentMap.build(a["entry_row"], r, device),
+            osc_map=SegmentMap.build(a["entry_osc"], n_osc, device),
             read_waves=tuple(w & (t["op"] == READ) for w in in_wave),
             write_waves=tuple(w & (t["op"] == WRITE) for w in in_wave),
-            names=names)
+            names=names, key=digest.hexdigest())
+
+    def arrays(self) -> dict:
+        """The table's arrays on the host (what :meth:`from_arrays` takes)."""
+        return {f: getattr(self, f).cpu().numpy() for f in _TABLE_FIELDS}
+
+    def padded(self, n_rows: int, n_entries: int, n_waves: int,
+               new_n_osc: int, osc_remap=None) -> "WorkloadTable":
+        """Pad to a ragged-batch bucket shape with inert phantom rows
+        (the reference's ``WorkloadTable.padded``).
+
+        Phantom rows carry exact arithmetic identities: ``duty_cycle=0``
+        (never active), ``n_threads=0`` (zero issue cap), ``row_valid``
+        off.  Phantom stripe entries point at the first phantom row, so
+        their per-entry shares are exactly ``0.0`` and every segment sum
+        they join is unchanged bit for bit.  ``osc_remap`` (old interface
+        -> new) rewires the stripe scatter when the topology itself was
+        padded; waves beyond ``self.n_waves`` run empty.
+        """
+        r, e = len(self), self.entry_row.shape[0]
+        if n_rows < r or n_entries < e or n_waves < self.n_waves:
+            raise ValueError("padded shape must cover the existing table")
+        if n_entries > e and n_rows == r:
+            raise ValueError("phantom entries need at least one phantom row")
+        a = self.arrays()
+        pr, pe = n_rows - r, n_entries - e
+        fills = {"client": 0, "op": READ, "req_size": 1.0, "randomness": 0.0,
+                 "n_threads": 0.0, "thread_rate": 0.0, "duty_cycle": 0.0,
+                 "period": 1.0, "stripe_len": 1.0, "wave": 0,
+                 "row_valid": False}
+        out = {f: np.concatenate([a[f], np.full(pr, v, dtype=a[f].dtype)])
+               for f, v in fills.items()}
+        entry_osc = a["entry_osc"]
+        if osc_remap is not None:
+            entry_osc = np.asarray(osc_remap, dtype=np.int64)[entry_osc]
+        out["entry_row"] = np.concatenate(
+            [a["entry_row"], np.full(pe, r, dtype=np.int64)])
+        out["entry_osc"] = np.concatenate(
+            [entry_osc, np.zeros(pe, dtype=np.int64)])
+        return WorkloadTable.from_arrays(out, n_osc=new_n_osc,
+                                         n_waves=n_waves, device=self.device,
+                                         names=self.names)
+
+    @classmethod
+    def block(cls, tables: list, n_clients: int, device) -> "WorkloadTable":
+        """B tables of one shape (``n_osc`` interfaces and ``n_clients``
+        clients each) as one table over the block-diagonal fleet: element
+        b's rows become ``b * R + r``, its stripe entries ``b * E + e``,
+        its interfaces ``b * n_osc + osc`` and its clients ``b *
+        n_clients + c``.  Waves stay per element: rows of different
+        elements never share an interface, so wave k of the whole is the
+        union of the elements' wave k."""
+        t0 = tables[0]
+        n, r = t0.n_osc, len(t0)
+        if any(t.n_osc != n or len(t) != r for t in tables):
+            raise ValueError("WorkloadTable.block: tables of different "
+                             "shapes")
+        parts = [t.arrays() for t in tables]
+        out = {f: np.concatenate([p[f] for p in parts])
+               for f in _TABLE_FIELDS}
+        for f, step in (("client", n_clients), ("entry_row", r),
+                        ("entry_osc", n)):
+            counts = [len(p[f]) for p in parts]
+            out[f] = out[f] + np.repeat(np.arange(len(parts)) * step, counts)
+        return cls.from_arrays(out, n_osc=len(tables) * n,
+                               n_waves=max(t.n_waves for t in tables),
+                               device=device)
+
+    def init_wstate(self, state: SimState) -> WorkloadState:
+        """Bind the table to a state: zero issued bytes and each row's
+        delivered stripe bytes so far as its base."""
+        zero = torch.zeros(len(self), dtype=F64, device=self.device)
+        return WorkloadState(issued=zero.clone(), done_base=self.done_bytes(
+            state, WorkloadState(issued=zero, done_base=zero)))
 
     # ------------------------------------------------------------------ #
     def done_bytes(self, state: SimState, wstate: WorkloadState):

@@ -33,7 +33,13 @@ and 128-channel block, at every N.  The fused tuning loop replayed as
 a CUDA graph is held bit for bit against the same interval run eagerly
 on the card (8 x 4, and 32 x 8 with k = 2 and a disturbed schedule),
 against the CPU's plain versions (θ exact, counters to 1e-6), and its
-replayed run and eager interval make no host sync.
+replayed run and eager interval make no host sync.  The Scenario Lab's
+ragged bucket of three catalog scenarios (one block-diagonal fleet) is
+held the same way: replayed == eager bit for bit (a rebuilt batch
+replays without a new capture; one tuned element of three too), card ==
+CPU on the fused and the host paths, no host sync in a replayed run,
+and both kernels at the fleet's maps and rows equal to their plain
+versions.
 """
 
 import numpy as np
@@ -870,3 +876,151 @@ def test_fused_replay_and_interval_make_no_host_sync(cuda):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------- #
+# the Scenario Lab: a ragged bucket as one fleet on the card
+# --------------------------------------------------------------------- #
+LAB_MIXED = ("dlio_bert", "vpic_checkpoint", "noisy_neighbor")
+
+
+def _lab_bucket(device):
+    """Three catalog scenarios of three shapes, padded into one bucket."""
+    from repro_torch.lab.batch import stack_scenarios
+    from repro_torch.lab.scenarios import build, get_scenario
+
+    return stack_scenarios([build(get_scenario(n)) for n in LAB_MIXED],
+                           device=device)
+
+
+def _lab_model(device):
+    rng = np.random.default_rng(5)
+    return model_from_numpy(*(random_forest(rng, feature_dim(op), 20, 4)
+                              for op in (READ, WRITE)), device=device)
+
+
+def _lab_records(decisions):
+    return [(r.oscs.tolist(), r.ops.tolist(), r.decisions.theta.tolist(),
+             r.decisions.changed.tolist()) for r in decisions]
+
+
+def test_lab_bucket_graph_replay_equals_eager(cuda):
+    """run_batch(fused=True) on the bucket, every element tuned: the
+    replayed intervals bit-equal to the eager ones (records, every state
+    field), twice (the second batch, rebuilt, replays without a new
+    capture); one tuned element of three too."""
+    import dataclasses
+
+    from repro_torch.lab.batch import _FUSED_LOOPS, run_batch
+
+    model = _lab_model(cuda)
+    eager_batch = _lab_bucket(cuda)
+    eager = run_batch(eager_batch, model, seconds=3.0, fused=True,
+                      graph=False)
+    assert any(r.decisions.changed.any() for r in eager.decisions)
+    for captured in (True, False):
+        batch = _lab_bucket(cuda)
+        got = run_batch(batch, model, seconds=3.0, fused=True)
+        loop = next(v[0] for v in _FUSED_LOOPS.values() if v[1] is model)
+        assert loop.last_run["captured_now"] is captured
+        for key in eager.trace:
+            assert torch.equal(got.trace[key], eager.trace[key]), key
+        for f in dataclasses.fields(batch.state):
+            a = getattr(eager_batch.state, f.name)
+            b = getattr(batch.state, f.name)
+            assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), \
+                f.name
+    # one tuned element of three: the others ride with their mask off
+    runs = []
+    for graph in (False, None):
+        batch = _lab_bucket(cuda)
+        cols = batch.n_osc + batch.element_cols(1)
+        res = run_batch(batch, model, seconds=3.0, fused=True,
+                        tune_cols=cols, graph=graph)
+        runs.append((batch, _lab_records(res.decisions)))
+    assert runs[0][1] == runs[1][1]
+    assert torch.equal(runs[0][0].state.ctr_bytes_done,
+                       runs[1][0].state.ctr_bytes_done)
+
+
+def test_lab_bucket_on_card_matches_cpu(cuda):
+    """The bucket's fused run (graphs on the card) and its host-path run
+    on the card against the CPU's plain versions: decision records
+    identical, counters within 1e-6, MB/s within 1e-6."""
+    from repro_torch.lab.batch import run_batch
+
+    for fused in (True, False):
+        out = {}
+        for dev in ("cpu", cuda):
+            batch = _lab_bucket(dev)
+            res = run_batch(batch, _lab_model(dev), seconds=3.0,
+                            fused=fused)
+            out[str(dev)] = (batch, _lab_records(res.decisions))
+        (bc, rc), (bd, rd) = out["cpu"], out[str(cuda)]
+        assert rc == rd, f"fused={fused}"
+        assert any(any(ch) for _, _, _, ch in rd)
+        for f in ("ctr_bytes_done", "ctr_rpcs_sent", "ctr_latency_sum",
+                  "ctr_pending_integral", "dirty_bytes", "window_pages"):
+            a = getattr(bc.state, f).double().numpy()
+            b = getattr(bd.state, f).double().cpu().numpy()
+            assert np.max(np.abs(a - b) / np.maximum(np.abs(a), 1.0)) \
+                <= 1e-6, f
+        np.testing.assert_allclose(bd.throughput(3.0)["total_mbs"],
+                                   bc.throughput(3.0)["total_mbs"],
+                                   rtol=1e-6)
+
+
+def test_lab_bucket_replay_makes_no_host_sync(cuda):
+    """The bucket's replayed run (copy-in, the schedule's slices,
+    replays, record copies) makes no host sync."""
+    from repro_torch.pfs.loop_torch import FusedLoop
+
+    batch = _lab_bucket(cuda)
+    loop = FusedLoop(batch.params, batch.fleet, 100, _lab_model(cuda))
+    sched = batch.schedule(0, 400)
+    loop.run(batch.table, batch.state, batch.wstate, 4,
+             schedule=sched)                                 # the capture
+    inputs = loop.prepare(batch.state, batch.wstate, 4, schedule=sched)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop.advance(batch.table, inputs, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert loop.last_run["graph"] and not loop.last_run["captured_now"]
+
+
+def test_lab_kernels_at_fleet_maps_match_plain(cuda):
+    """``segment_sum`` on the bucket fleet's four maps (one column, and
+    the engine's and demand step's batched forms) bit-equal to the CPU's
+    plain version; the paired forest on the bucket's B * n * 24 rows
+    within 1e-5 of its plain version."""
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
+
+    batch = _lab_bucket(cuda)
+    rng = np.random.default_rng(17)
+    maps = {"ost": batch.fleet.ost_map, "client": batch.fleet.client_map,
+            "row": batch.table.row_map, "osc": batch.table.osc_map}
+    for name, smap in maps.items():
+        for k in (1, 2, 8):
+            e = smap.n_entries
+            v = rng.standard_normal((k, e)) * 10.0 ** rng.uniform(-3, 9,
+                                                                  (k, e))
+            got = segment_sum(torch.as_tensor(v, device=cuda), smap)
+            want = segment_sum_ref(torch.as_tensor(v), smap.ids.cpu(),
+                                   smap.num_segments)
+            assert torch.equal(got.cpu(), want), (name, k)
+    m_cpu = _lab_model("cpu")
+    feature, threshold, leaf, base, depth, n_features = ops.pair_forests(
+        m_cpu.read_forest, m_cpu.write_forest)
+    n = batch.fleet.n_osc * 24
+    x = (rng.standard_normal((n, n_features))
+         * 10.0 ** rng.uniform(-1, 3, n_features)).astype(np.float32)
+    op = np.repeat(rng.integers(0, 2, size=batch.fleet.n_osc),
+                   24).astype(np.int32)
+    arrays = (x, op, feature, threshold, leaf, base)
+    plain = ops.paired_forest_margin(*map(torch.as_tensor, arrays), depth)
+    got = ops.paired_forest_margin(
+        *(torch.as_tensor(a, device=cuda) for a in arrays), depth)
+    np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), atol=1e-5)

@@ -87,7 +87,28 @@ Phases, in order; any failure exits non-zero:
    each one's rows against their plain versions, and ``smoke_campaign()`` through ``run_campaign`` on the card and on
    the CPU (the collected rows and labels identical, forests equal);
    counters zeroed just before each run and read just after, every
-   number beside the card's name and power limit.
+   number beside the card's name and power limit;
+10. observability and the loss-finding pipeline, with the same model:
+   the 8,192-interface fleet of phase 6 through a traced fused loop
+   (``TraceConfig(stride=20)``) eager and on a graph, and untraced on a
+   graph (θ, decisions and state bit-equal to the untraced replay's;
+   every record, provenance and timeline, bit-equal to the traced
+   eager run's), then replayed runs of the two loops alternated in this
+   process for the traced-vs-untraced span (CUDA events), and eager runs
+   alternated for the host-bound eager interval's wall time; the fuzz
+   sweep at ``FuzzConfig``'s defaults (the 24-point Θ grid, 6 s, four
+   topologies, 0-3 events) cut from 512 to 64 scenarios, diagnosis on,
+   twice on graphs (the two ``report.json`` byte-identical; wall time,
+   captures, buckets); ``SMOKE`` cut from 64 to 16 scenarios on the
+   card on graphs and eager and on the CPU (the three reports
+   byte-identical), and its losers through ``diagnose_many`` on graphs
+   and eager (identical, equal to the sweep's diagnoses); ``trace`` of the worst
+   triaged loser written as JSONL, Chrome and markdown and read back;
+   ``segment_sum`` as the timeline tap launches it (five columns on the
+   fleet's OST map) and on each fuzz bucket's maps, and the forest on
+   each bucket's rows, against their plain versions.  Launches of each
+   run go into rows 1 and 2.  Its outputs are written under
+   ``build/obs/``.
 
 It prints one JSON line of kernel results, the ``nvidia-smi`` name and
 power limit, and as its last line
@@ -1876,6 +1897,447 @@ def lab_phase(model, seed: int, dev, kernels: list, card: str) -> None:
         campaign=campaign)
 
 
+# ---------------------------------------------------------------------- #
+# phase 10: observability and the loss-finding pipeline
+# ---------------------------------------------------------------------- #
+TRACE_STRIDE = 20
+AB_ORDER = ("untraced", "traced", "traced", "untraced", "untraced",
+            "traced")                     # replayed runs, alternated
+FUZZ_SCENARIOS = 64                       # FuzzConfig's 512, cut
+CUT_SCENARIOS = 16                        # SMOKE's 64, cut: card vs CPU
+OBS_ROOT = os.path.join(ROOT, "build", "obs")
+
+
+def _records_equal(a: dict, b: dict, keys) -> str | None:
+    """The first record of ``keys`` (``timeline.<f>`` for the timeline's)
+    that differs between two fused traces, or ``None``."""
+    import torch
+
+    for k in keys:
+        x = a["timeline"][k[9:]] if k.startswith("timeline.") else a[k]
+        y = b["timeline"][k[9:]] if k.startswith("timeline.") else b[k]
+        if not torch.equal(x, y):
+            return k
+    return None
+
+
+def obs_traced_fleet(model, dev, card: str) -> dict:
+    """The 8,192-interface fleet of phase 6 through a traced fused loop
+    (stride 20): eager, on a graph, and an untraced graph beside it; the
+    replayed θ and state equal to the untraced run's, the replayed
+    records (provenance and timeline) equal to the eager run's, all bit
+    for bit; then replayed runs of both loops alternated in this process
+    for the traced-vs-untraced span, and eager runs alternated for the
+    host-bound eager interval's wall time."""
+    import torch
+
+    from repro_torch.obs.schema import TraceConfig
+    from repro_torch.pfs.loop_torch import FusedLoop
+    from repro_torch.pfs.workloads import table_from_sim
+
+    sim = build_sim(CLIENTS, OSTS, dev)
+    table, wstate = table_from_sim(sim)
+    n = int(round(SECONDS / INTERVAL))
+    steps = fleet_ticks(sim, INTERVAL)
+    cfg = TraceConfig(stride=TRACE_STRIDE)
+    loops = {"traced": FusedLoop(sim.params, sim.topo, steps, model,
+                                 trace=cfg),
+             "untraced": FusedLoop(sim.params, sim.topo, steps, model)}
+    runs = {}
+    for name, which, graph in (("traced eager", "traced", False),
+                               ("traced graph", "traced", None),
+                               ("untraced graph", "untraced", None)):
+        loop = loops[which]
+        res, secs, counts = counted(lambda: loop.run(
+            table, sim.state, wstate, n, graph=graph))
+        check_state(res.state, f"traced fleet ({name})")
+        runs[name] = dict(result=res, seconds=secs, counts=counts,
+                          run=dict(loop.last_run))
+    eager, graph, plain = (runs[k]["result"] for k in (
+        "traced eager", "traced graph", "untraced graph"))
+    keys = list(eager.trace.keys() - {"timeline"}) + [
+        "timeline." + k for k in eager.trace["timeline"]]
+    bad = _records_equal(eager.trace, graph.trace, keys)
+    if bad:
+        raise AssertionError(f"traced fleet: replayed record {bad} differs "
+                             "from the eager run's")
+    bad = _records_equal(plain.trace, graph.trace, plain.trace.keys())
+    if bad:
+        raise AssertionError(f"traced fleet: decision record {bad} differs "
+                             "from the untraced run's")
+    for f in dataclasses.fields(plain.state):
+        a, b = getattr(plain.state, f.name), getattr(graph.state, f.name)
+        if not (torch.equal(a, b) if torch.is_tensor(a) else a == b):
+            raise AssertionError(f"traced fleet: state {f.name} differs "
+                                 "from the untraced run's")
+    trace = loops["traced"].run_trace(graph)
+    trace.validate()
+    spans = {"traced": [], "untraced": []}
+    for which in AB_ORDER:
+        loop = loops[which]
+        _, secs, _ = counted(lambda: loop.run(table, sim.state, wstate, n))
+        if loop.last_run["captured_now"]:
+            raise AssertionError("traced fleet: a replayed run captured")
+        spans[which].append((loop.last_run["device_ms_per_interval"],
+                             secs / n * 1e3))
+    med = {k: float(np.median([s[0] for s in v])) for k, v in spans.items()}
+    # the eager interval, host-bound: wall ms per interval, alternated
+    eager_ms = {"traced": [], "untraced": []}
+    for which in AB_ORDER[:4]:
+        loop = loops[which]
+        _, secs, _ = counted(lambda: loop.run(table, sim.state, wstate, n,
+                                              graph=False))
+        eager_ms[which].append(secs / n * 1e3)
+    g = runs["traced graph"]["run"]
+    out = dict(
+        interfaces=sim.n_osc, intervals=n, stride=TRACE_STRIDE,
+        samples=int(trace.timeline["t"].shape[0]),
+        decided_rows=int(trace.decisions["decided"].sum()),
+        changes=int(trace.decisions["changed"].sum()),
+        eager_s=runs["traced eager"]["seconds"],
+        eager_device_ms_per_interval=runs["traced eager"]["run"][
+            "device_ms_per_interval"],
+        graph_run_s=runs["traced graph"]["seconds"],
+        capture_s=g["capture_s"], instantiate_s=g["instantiate_s"],
+        setup_s=g["setup_s"],
+        launches_per_replay=g["launches_per_replay"],
+        untraced_launches_per_replay=runs["untraced graph"]["run"][
+            "launches_per_replay"],
+        spans_ms={k: [s[0] for s in v] for k, v in spans.items()},
+        run_ms_per_interval={k: [s[1] for s in v] for k, v in spans.items()},
+        traced_ms=med["traced"], untraced_ms=med["untraced"],
+        overhead=med["traced"] / med["untraced"] - 1.0,
+        eager_ms=eager_ms,
+        eager_counts=runs["traced eager"]["counts"],
+        graph_replayed={k: v * g["replays"]
+                        for k, v in g["launches_per_replay"].items()})
+    log(f"{card} | traced fleet: {sim.n_osc} interfaces, {n} intervals, "
+        f"stride {TRACE_STRIDE} ({out['samples']} timeline samples of "
+        f"{sim.n_osts} OSTs, {out['decided_rows']} decided rows, "
+        f"{out['changes']} θ changes): replayed records bit-equal to the "
+        f"eager run's, θ, decisions and state bit-equal to the untraced "
+        f"replay's; eager {out['eager_s']:.3f} s, graphed "
+        f"{out['graph_run_s']:.3f} s (capture {g['capture_s']:.3f} s"
+        + (f" + instantiate {g['instantiate_s']:.3f} s"
+           if g["instantiate_s"] is not None else "")
+        + f"); launches per replay traced " + ", ".join(
+            f"{k}={v}" for k, v in g["launches_per_replay"].items())
+        + ", untraced " + ", ".join(
+            f"{k}={v}" for k, v in out["untraced_launches_per_replay"].items())
+        + "; replayed span per interval (CUDA events, runs alternated "
+        + " ".join(AB_ORDER) + "): traced " + ", ".join(
+            f"{s:.2f}" for s in out["spans_ms"]["traced"])
+        + " ms, untraced " + ", ".join(
+            f"{s:.2f}" for s in out["spans_ms"]["untraced"])
+        + f" ms; medians {med['traced']:.2f} / {med['untraced']:.2f} ms = "
+        f"{100 * out['overhead']:+.1f}%; eager wall per interval (runs "
+        "alternated " + " ".join(AB_ORDER[:4]) + "): traced " + ", ".join(
+            f"{s:.2f}" for s in eager_ms["traced"]) + " ms, untraced "
+        + ", ".join(f"{s:.2f}" for s in eager_ms["untraced"]) + " ms")
+    return out
+
+
+def _sweep(cfg, model, dev, out_dir: str, graph=None) -> dict:
+    """One ``run_sweep`` with diagnosis, its report written to
+    ``out_dir``; wall time, launches, the loop cache's accounting."""
+    from repro_torch.lab import batch as LB
+    from repro_torch.lab.fuzz import run_sweep, write_fuzz_report
+
+    LB.reset_loop_cache_stats()
+    report, secs, counts = counted(lambda: run_sweep(
+        cfg, model, diagnose=True, graph=graph, device=dev))
+    stats = LB.loop_cache_stats()
+    jpath, mpath = write_fuzz_report(report, out_dir)
+    with open(jpath, "rb") as f, open(mpath, "rb") as g:
+        files = (f.read(), g.read())
+    return dict(report=report, seconds=secs, counts=counts, stats=stats,
+                files=files, jpath=jpath)
+
+
+def _sweep_line(name: str, r: dict) -> str:
+    s, st = r["report"]["summary"], r["stats"]
+    return (f"{name}: {s['n_scenarios']} scenarios in {s['n_buckets']} "
+            f"buckets, {s['n_dispatches']} fused runs, {s['n_losses']} "
+            f"losses ({s.get('n_diagnosed', 0)} diagnosed: "
+            + ", ".join(f"{c}={k}" for c, k in s.get("loss_causes",
+                                                    {}).items())
+            + f") in {r['seconds']:.3f} s; captures {st['captures']} in "
+            f"{st['capture_s']:.3f} s, replays {st['replays']} (device span "
+            f"{st['replay_device_ms']:.2f} ms); loop cache hits "
+            f"{st['hits']}, misses {st['misses']}; launches counted "
+            + ", ".join(f"{k}={v}" for k, v in r["counts"].items())
+            + ("; replayed " + ", ".join(
+                f"{k}={v}" for k, v in st["replayed_launches"].items())
+               if st["replays"] else ""))
+
+
+def obs_fuzz(model, dev, card: str) -> dict:
+    """The fuzz sweep at ``FuzzConfig``'s defaults (the 24-point Θ grid,
+    6 s, four topologies, 0-3 events) cut to 64 scenarios, diagnosis on,
+    twice on graphs: the two reports byte-identical."""
+    import shutil
+
+    from repro_torch.lab.fuzz import FuzzConfig
+
+    cfg = FuzzConfig(n_scenarios=FUZZ_SCENARIOS)
+    out_dir = os.path.join(OBS_ROOT, "fuzz")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    runs = [_sweep(cfg, model, dev, out_dir) for _ in range(2)]
+    if runs[0]["files"] != runs[1]["files"]:
+        raise AssertionError("fuzz sweep: two runs wrote different reports")
+    for r in runs[0]["report"]["scenarios"]:
+        if not all(np.isfinite(r[k]) and r[k] >= 0 for k in (
+                "dial_mbs", "best_static_mbs", "dial_frac_of_best_static")):
+            raise AssertionError(f"fuzz sweep: {r['name']} MB/s malformed")
+    for name, r in zip(("fuzz sweep", "fuzz sweep again"), runs):
+        log(f"{card} | " + _sweep_line(name, r))
+    return dict(runs=runs, config=cfg)
+
+
+def obs_cut_sweep(model, model_cpu, dev, card: str) -> dict:
+    """The CI-sized sweep (``SMOKE``: 6 static θ, 3 s, two topologies)
+    cut to 16 scenarios, diagnosis on, on the card on graphs and eager
+    and on the CPU (plain versions, one torch thread, their fastest at
+    these sizes): the three reports byte-identical.  Then its losers
+    through ``diagnose_many`` on graphs and eager: identical, and equal
+    to the sweep's diagnoses."""
+    import importlib
+
+    import torch
+
+    from repro_torch.lab import batch as LB
+    from repro_torch.lab.diagnose import specs_from_report
+    from repro_torch.lab.fuzz import SMOKE
+
+    # the module (``repro_torch.obs`` exports a function ``diagnose``)
+    D = importlib.import_module("repro_torch.obs.diagnose")
+    cfg = dataclasses.replace(SMOKE, n_scenarios=CUT_SCENARIOS)
+    out_dir = os.path.join(OBS_ROOT, "fuzz_cut")
+    runs = {"graphs": _sweep(cfg, model, dev, out_dir),
+            "eager": _sweep(cfg, model, dev, out_dir, graph=False)}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    try:
+        runs["cpu"] = _sweep(cfg, model_cpu, "cpu", out_dir)
+    finally:
+        torch.set_num_threads(threads)
+    runs["cpu"]["seconds"] = time.perf_counter() - t0
+    for name in ("eager", "cpu"):
+        if runs[name]["files"] != runs["graphs"]["files"]:
+            raise AssertionError(f"cut sweep: the {name} report differs from "
+                                 "the card's on graphs")
+    for name, r in runs.items():
+        log(f"{card} | " + _sweep_line(f"cut sweep ({name})", r))
+    log(f"{card} | cut sweep: reports byte-identical on the card (graphs, "
+        "eager) and the CPU")
+    report = runs["graphs"]["report"]
+    pairs = specs_from_report(runs["graphs"]["jpath"], None, True)
+    diag = {}
+    if pairs:
+        dcfg = D.DiagnoseConfig.from_fuzz(cfg)
+        for name, graph in (("graphs", None), ("graphs again", None),
+                            ("eager", False)):
+            if name == "graphs":
+                LB._FUSED_LOOPS.clear()      # the sweep's graphs are these
+            LB.reset_loop_cache_stats()
+            diags, secs, counts = counted(lambda: D.diagnose_many(
+                pairs, model, dcfg, graph=graph, device=dev))
+            diag[name] = dict(diagnoses=diags, seconds=secs, counts=counts,
+                              stats=LB.loop_cache_stats())
+        for name in ("graphs again", "eager"):
+            if diag[name]["diagnoses"] != diag["graphs"]["diagnoses"]:
+                raise AssertionError(f"diagnose_many: {name} differs from "
+                                     "the first run on graphs")
+        stamped = {r["fingerprint"]: r.get("diagnosis")
+                   for r in report["triage"]["losses"]}
+        for d in diag["graphs"]["diagnoses"]:
+            if stamped[d["fingerprint"]] != {
+                    k: v for k, v in d.items()
+                    if k not in ("name", "fingerprint")}:
+                raise AssertionError("diagnose_many differs from the "
+                                     "sweep's diagnosis of "
+                                     f"{d['fingerprint']}")
+        g, a, e = (diag[k] for k in ("graphs", "graphs again", "eager"))
+        log(f"{card} | diagnose_many of the cut sweep's {len(pairs)} losers "
+            f"(one traced, intervened fused run per padded bucket): on "
+            f"graphs {g['seconds']:.3f} s (captures {g['stats']['captures']}"
+            f" in {g['stats']['capture_s']:.3f} s, replays "
+            f"{g['stats']['replays']}), again {a['seconds']:.3f} s "
+            f"({a['stats']['captures']} captures), eager {e['seconds']:.3f} "
+            "s; diagnoses identical, and equal to the sweep's")
+    return dict(runs=runs, diag=diag)
+
+
+def obs_trace_loser(model, dev, fuzz: dict, card: str) -> dict:
+    """``trace`` of the sweep's worst triaged loser: decisions equal to the
+    sweep's DIAL arm, written as JSONL, Chrome and markdown, and read
+    back."""
+    from repro_torch.lab.trace import (load_spec_from_report,
+                                       trace_scenario, write_trace)
+    from repro_torch.obs.schema import TraceConfig
+    from repro_torch.obs.sinks import read_jsonl, read_jsonl_diagnosis
+
+    report = fuzz["runs"][0]["report"]
+    losses = report["triage"]["losses"]
+    if not losses:
+        log(f"{card} | trace: the sweep triaged no loser; traced its "
+            "worst scenario instead")
+        worst = min(report["scenarios"],
+                    key=lambda r: r["dial_frac_of_best_static"])
+        from repro_torch.lab.fuzz import generate_spec
+        spec = generate_spec(fuzz["config"], worst["index"])
+    else:
+        worst = losses[0]
+        spec = load_spec_from_report(fuzz["runs"][0]["jpath"],
+                                     worst["fingerprint"])
+    trace, secs, counts = counted(lambda: trace_scenario(
+        spec, model, seconds=fuzz["config"].seconds,
+        config=TraceConfig(stride=TRACE_STRIDE), device=dev))
+    if int(trace.decisions["changed"].sum()) != worst["changes"]:
+        raise AssertionError("trace: θ changes differ from the sweep's")
+    diagnosis = worst.get("diagnosis")
+    paths = write_trace(trace, os.path.join(OBS_ROOT, "trace"),
+                        title=spec.name, diagnosis=diagnosis)
+    back = read_jsonl(paths["jsonl"])
+    back.validate()
+    for f in ("decided", "theta", "changed", "warm"):
+        if not np.array_equal(back.decisions[f], trace.decisions[f]):
+            raise AssertionError(f"trace: JSONL {f} differs on reading back")
+    np.testing.assert_allclose(back.timeline["read_bytes"],
+                               trace.timeline["read_bytes"], rtol=1e-12)
+    if (read_jsonl_diagnosis(paths["jsonl"]) is None) != (diagnosis is None):
+        raise AssertionError("trace: the diagnosis record did not round-trip")
+    with open(paths["chrome"]) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    log(f"{card} | trace of {spec.name} ({worst['fingerprint']}, DIAL at "
+        f"{100 * worst['dial_frac_of_best_static']:.1f}% of best static): "
+        f"{trace.n_intervals} intervals x {trace.n_interfaces} interfaces, "
+        f"{len(trace.timeline['t'])} samples in {secs:.3f} s; JSONL "
+        f"{sizes['jsonl']} B read back, Chrome {n_events} events, markdown "
+        f"{sizes['md']} B; launches " + ", ".join(
+            f"{k}={v}" for k, v in counts.items()))
+    return dict(seconds=secs, counts=counts, sizes=sizes, events=n_events)
+
+
+def obs_kernels(model, fuzz_cfg, rng) -> tuple:
+    """``segment_sum`` as the timeline tap launches it (five columns on
+    the fleet's OST map) and on the four maps of each fuzz bucket's first
+    chunk, the paired forest on each chunk's rows, against their plain
+    versions, timed as phase 4 times them."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.core.config_space import SPACE
+    from repro_torch.kernels.gbdt_forest.ops import pair_forests
+    from repro_torch.lab.batch import pad_class, stack_scenarios
+    from repro_torch.lab.fuzz import generate_specs
+    from repro_torch.lab.scenarios import build
+
+    dev = model.device
+    sim = build_sim(CLIENTS, OSTS, dev)
+    maps = {"timeline tap, osc_ost x5": (sim.topo.ost_map, 5)}
+    groups: dict = {}
+    for spec in generate_specs(fuzz_cfg):
+        groups.setdefault(pad_class(build(spec)), []).append(spec)
+    arms = len(SPACE) + 1
+    fleets = []
+    for key in sorted(groups, key=lambda k: tuple(k[1:])):
+        chunk = groups[key][:max(1, fuzz_cfg.max_batch_elems // arms)]
+        built = [build(dc.replace(s, initial_theta=th))
+                 for s in chunk for th in SPACE.configs() + [s.initial_theta]]
+        b = stack_scenarios(built, device=dev)
+        tag = "fuzz " + "x".join(str(int(x)) for x in key[1:])
+        fleets.append((tag, b))
+        maps.update({f"{tag} osc_ost x2": (b.fleet.ost_map, 2),
+                     f"{tag} osc_client": (b.fleet.client_map, 1),
+                     f"{tag} entry_row": (b.table.row_map, 1),
+                     f"{tag} entry_osc x8": (b.table.osc_map, 8)})
+    seg = check_segment_sum(maps, rng)
+    feature, threshold, leaf, base, _, n_features = pair_forests(
+        model.read_forest, model.write_forest)
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    forests = []
+    for tag, b in fleets:
+        n_osc = b.fleet.n_osc
+        x = to((rng.standard_normal((n_osc * 24, n_features)) * 10.0
+                ** rng.uniform(-1, 3, n_features)).astype(np.float32))
+        op = to(np.repeat(rng.integers(0, 2, n_osc), 24).astype(np.int32))
+        forests.append(dict(fleet=tag, **check_forest(
+            "paired_forest_margin",
+            "src/repro/kernels/gbdt_forest/kernel.py:96", x, op,
+            *map(to, (feature, threshold, leaf, base)),
+            label=f" ({tag} rows)")))
+    return seg, forests
+
+
+def obs_phase(model, seed: int, dev, kernels: list, card: str) -> None:
+    """Phase 10, observability and the loss-finding pipeline, on the
+    model phase 3 trained: the traced fleet, the fuzz sweep (twice) and
+    ``diagnose_many`` of its losers, the cut sweep on the card and the
+    CPU, the worst loser's trace, and the two kernels at the tap's and
+    the fuzz buckets' shapes; launches go into the kernels' rows."""
+    import torch
+
+    from repro_torch.convert import forest_to_numpy, model_from_numpy
+    from repro_torch.pfs.state import READ, WRITE
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 10)
+    by_name = {k["name"]: k for k in kernels}
+    traced = obs_traced_fleet(model, dev, card)
+    torch.cuda.empty_cache()
+    fuzz = obs_fuzz(model, dev, card)
+    model_cpu = model_from_numpy(*(forest_to_numpy(model.forest(op))
+                                   for op in (READ, WRITE)), device="cpu")
+    cut = obs_cut_sweep(model, model_cpu, dev, card)
+    tr = obs_trace_loser(model, dev, fuzz, card)
+    seg, forests = obs_kernels(model, fuzz["config"], rng)
+    torch.cuda.empty_cache()
+    by_name["segment_sum"]["obs_shapes"] = seg["cases"]
+    by_name["paired_forest_margin"]["obs_shapes"] = [
+        {k: f[k] for k in ("fleet", "ms", "eager_ms", "plain_ms", "bound_ms",
+                           "bound_by", "max_abs_err", "shape")}
+        for f in forests]
+    sweeps = [("fuzz sweep", fuzz["runs"][0]),
+              ("fuzz sweep again", fuzz["runs"][1]),
+              ("cut sweep graphs", cut["runs"]["graphs"]),
+              ("cut sweep eager", cut["runs"]["eager"])]
+    for kname in ("segment_sum", "paired_forest_margin"):
+        add_path(by_name[kname], "traced fleet eager",
+                 traced["eager_counts"].get(kname, 0))
+        add_path(by_name[kname], "traced fleet graph (captured x replays)",
+                 traced["graph_replayed"].get(kname, 0))
+        for name, r in sweeps:
+            add_path(by_name[kname], f"{name} (counted + replayed)",
+                     r["counts"].get(kname, 0)
+                     + r["stats"]["replayed_launches"].get(kname, 0))
+        if cut["diag"]:
+            for name in ("graphs", "graphs again", "eager"):
+                d = cut["diag"][name]
+                add_path(by_name[kname], f"diagnose_many {name} (counted + "
+                         "replayed)", d["counts"].get(kname, 0)
+                         + d["stats"]["replayed_launches"].get(kname, 0))
+        add_path(by_name[kname], "trace", tr["counts"].get(kname, 0))
+    summary = lambda r: dict(seconds=r["seconds"], **{  # noqa: E731
+        k: r["stats"][k] for k in ("captures", "capture_s", "replays",
+                                   "replay_device_ms", "hits", "misses")},
+        **{k: r["report"]["summary"][k] for k in (
+            "n_buckets", "n_dispatches", "n_losses")})
+    by_name["paired_forest_margin"]["obs"] = dict(
+        traced_fleet={k: v for k, v in traced.items()
+                      if k not in ("eager_counts", "graph_replayed")},
+        fuzz=[summary(r) for r in fuzz["runs"]],
+        diagnose_many={k: dict(seconds=v["seconds"], n=len(v["diagnoses"]),
+                               captures=v["stats"]["captures"])
+                       for k, v in cut["diag"].items()},
+        cut_sweep={k: summary(v) for k, v in cut["runs"].items()},
+        trace=tr, phase_s=time.perf_counter() - t_phase)
+    log(f"{card} | phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1913,6 +2375,8 @@ def main(argv=None) -> int:
     kernels += serving_phase(args.seed, torch.device("cuda"))
     torch.cuda.empty_cache()
     lab_phase(model, args.seed, torch.device("cuda"), kernels, smi)
+    torch.cuda.empty_cache()
+    obs_phase(model, args.seed, torch.device("cuda"), kernels, smi)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -133,7 +133,9 @@ def empty_tick_result(n_configs: int = len(SPACE)) -> FleetTickResult:
 class FleetAgent:
     """DIAL for a whole fleet of interfaces; call :meth:`tick` every
     interval.  ``device=None`` means the CUDA card; the port's sim and
-    the model must live on the same device."""
+    the model must live on the same device.  ``tracer`` (a
+    :class:`~repro_torch.obs.host.HostTracer`) records every interval's
+    decision provenance, gated or not, as device tensors."""
 
     def __init__(
         self,
@@ -145,6 +147,7 @@ class FleetAgent:
         min_volume_bytes: float = 256 * 1024,
         warmup_intervals: int = 2,
         device=None,
+        tracer=None,
     ):
         self.device = resolve_device(device)
         self._prev = port.probe_all()
@@ -156,6 +159,7 @@ class FleetAgent:
         self.port = port
         self.model = model
         self.space = space
+        self.tracer = tracer
         self.tuner_params = (tuner_params if tuner_params is not None
                              else TunerParams())
         self.k = k
@@ -188,6 +192,9 @@ class FleetAgent:
         ops = torch.where(vol_r >= vol_w, READ, WRITE)     # op model (SIII-C)
         active = torch.maximum(vol_r, vol_w) >= self.min_volume
         if len(self._hist) < self.k + 1 or self._ticks <= self.warmup + self.k:
+            if self.tracer is not None:
+                self._trace_gated(cur.t, ops, vol_r, vol_w, active, False,
+                                  None, None, current)
             return self._gated()
 
         # per-interface gating, as masks (burst guard on the op volume)
@@ -201,6 +208,9 @@ class FleetAgent:
         code = torch.where(active & steady, ops, -1).cpu().numpy()
         rows_h = np.nonzero(code >= 0)[0]
         if rows_h.size == 0:
+            if self.tracer is not None:
+                self._trace_gated(cur.t, ops, vol_r, vol_w, active, True,
+                                  steady, ratio, current)
             return self._gated()
         is_read_h = code[rows_h] == READ
         to_dev = lambda a: torch.as_tensor(a, device=self.device)
@@ -225,10 +235,51 @@ class FleetAgent:
         # the same as writing the changed ones, without a host sync
         self.port.set_knobs_many(self.oscs[rows], dec.theta[:, 0],
                                  dec.theta[:, 1])
+        if self.tracer is not None:
+            self._trace_decided(cur.t, rows, dec, ops, vol_r, vol_w, active,
+                                steady, ratio, current)
         result = FleetTickResult(oscs=self.oscs[rows].cpu(),
                                  ops=ops[rows].cpu(), decisions=dec.to("cpu"))
         self.decisions.append(result)
         return result
+
+    def _trace_gated(self, t, ops, vol_r, vol_w, active, warm, steady,
+                     ratio, current) -> None:
+        """Mirror a no-decision interval into the tracer (raw values; the
+        shared normalization applies the masking convention).  Before the
+        history is warm there is no ``steady`` or ``ratio`` (``None``)."""
+        zi = torch.zeros(self.n, dtype=torch.int64, device=self.device)
+        zf = torch.zeros(self.n, dtype=F64, device=self.device)
+        zb = torch.zeros(self.n, dtype=torch.bool, device=self.device)
+        if steady is None:
+            steady, ratio = zb, zf
+        self.tracer.record_interval(
+            t, zb, ops, current, zb, zi, zf,
+            torch.zeros((self.n, len(self.space)), dtype=F64,
+                        device=self.device),
+            vol_r, vol_w, active, steady, warm, ratio, current)
+
+    def _trace_decided(self, t, rows, dec, ops, vol_r, vol_w, active,
+                       steady, ratio, current) -> None:
+        """Mirror a decided interval: the Algorithm 1 outcome scattered
+        back to full-fleet tensors (the decided rows' θ, the applied θ
+        elsewhere), on the device."""
+        decided = torch.zeros(self.n, dtype=torch.bool, device=self.device)
+        decided[rows] = True
+        theta = current.clone()
+        theta[rows] = dec.theta
+        changed = torch.zeros_like(decided)
+        changed[rows] = dec.changed
+        ncand = torch.zeros(self.n, dtype=torch.int64, device=self.device)
+        ncand[rows] = dec.n_candidates
+        score = torch.zeros(self.n, dtype=F64, device=self.device)
+        score[rows] = dec.score
+        probs = torch.zeros((self.n, len(self.space)), dtype=F64,
+                            device=self.device)
+        probs[rows] = dec.probs
+        self.tracer.record_interval(
+            t, decided, ops, theta, changed, ncand, score, probs, vol_r,
+            vol_w, active, steady, True, ratio, current)
 
     def ingest_fused(self, result) -> None:
         """Adopt a :class:`~repro_torch.pfs.loop_torch.FusedLoopResult` as
@@ -258,7 +309,7 @@ class FleetAgent:
 def run_fleet(sim, model: DIALModel, oscs=None, seconds: float = 10.0,
               interval: float = 0.5, tuner_params: TunerParams | None = None,
               backend: str = "torch", device=None,
-              graph: bool | None = None) -> FleetAgent:
+              graph: bool | None = None, trace=None) -> FleetAgent:
     """Drive the simulator with one fleet agent over ``oscs`` (default
     all interfaces).
 
@@ -276,22 +327,41 @@ def run_fleet(sim, model: DIALModel, oscs=None, seconds: float = 10.0,
       ingests the run.  The loop is kept as ``fleet.loop``.
 
     Decisions and knob trajectories are the same on both.
+
+    ``trace`` (a :class:`~repro_torch.obs.schema.TraceConfig`) opts the
+    run into telemetry: the agent carries a normalized
+    :class:`~repro_torch.obs.schema.RunTrace` as ``fleet.trace``.  On
+    ``"torch-fused"`` the records are the loop's; on ``"torch"`` a
+    :class:`~repro_torch.obs.host.HostTracer` takes the same records,
+    its timeline sampled in the engine's tick loop on the device.
+    Tracing never changes a decision.
     """
     if backend not in ("torch", "torch-fused"):
         raise ValueError(f"unknown engine backend {backend!r}")
     if graph is not None and backend != "torch-fused":
         raise ValueError("graph= applies to backend='torch-fused' only")
+    tracer = None
+    if trace is not None and backend == "torch":
+        from repro_torch.obs.host import HostTracer
+
+        tracer = HostTracer(trace, sim.params, sim.topo)
     fleet = FleetAgent(SimFleetPort(sim, oscs), model,
-                       tuner_params=tuner_params, device=device)
+                       tuner_params=tuner_params, device=device,
+                       tracer=tracer)
     fleet.loop = None
+    fleet.trace = None
     steps_per_interval = max(int(round(interval / sim.params.tick)), 1)
     n_intervals = int(round(seconds / interval))
     table, wstate = table_from_sim(sim)
     if backend == "torch":
         engine = FusedEngine(sim.params, sim.topo, table, steps_per_interval)
         for _ in range(n_intervals):
-            sim.state, wstate = engine.run_interval(sim.state, wstate)
+            sim.state, wstate = engine.run_interval(sim.state, wstate,
+                                                    tracer=tracer)
             fleet.tick()
+        if tracer is not None:
+            fleet.trace = tracer.run_trace(fleet.oscs, interval,
+                                           sim.params.tick)
     else:
         from repro_torch.pfs.loop_torch import FusedLoop
 
@@ -299,7 +369,7 @@ def run_fleet(sim, model: DIALModel, oscs=None, seconds: float = 10.0,
             sim.params, sim.topo, steps_per_interval, model,
             space=fleet.space, tuner_params=fleet.tuner_params, k=fleet.k,
             min_volume_bytes=fleet.min_volume,
-            warmup_intervals=fleet.warmup)
+            warmup_intervals=fleet.warmup, trace=trace)
         tune_mask = torch.zeros(sim.n_osc, dtype=torch.bool,
                                 device=fleet.device)
         tune_mask[fleet.oscs] = True
@@ -307,5 +377,7 @@ def run_fleet(sim, model: DIALModel, oscs=None, seconds: float = 10.0,
                                 tune_mask=tune_mask, graph=graph)
         sim.state, wstate = result.state, result.wstate
         fleet.ingest_fused(result)
+        if trace is not None:
+            fleet.trace = fleet.loop.run_trace(result)
     sync_workloads_from_table(sim, wstate)
     return fleet

@@ -14,10 +14,17 @@ The port of the reference's ``repro/lab`` batch layer:
     campaign.py    offline collection on the batch path, training, and
                    versioned model artifacts;
     evaluate.py    every scenario under tuned vs default vs best-static
-                   policies, as a JSON + markdown report.
+                   policies, as a JSON + markdown report;
+    fuzz.py        seeded scenario generation, sweeps of DIAL against a
+                   static-θ grid, auto-triaged loss reports;
+    trace.py       one scenario replayed through the traced fused loop,
+                   written as JSONL, Chrome trace and markdown;
+    diagnose.py    counterfactual diagnosis of a scenario or of a fuzz
+                   report's losers (:mod:`repro_torch.obs.diagnose`).
 
-CLI: ``python -m repro_torch.lab {list,campaign,evaluate}`` (``--smoke``
-for the CI-sized runs, ``--device cpu`` for the plain versions).
+CLI: ``python -m repro_torch.lab {list,campaign,evaluate,fuzz,trace,
+diagnose}`` (``--smoke`` for the CI-sized runs, ``--device cpu`` for the
+plain versions).
 """
 
 from repro_torch.lab.batch import (BatchEngine, BatchPort, ScenarioBatch,

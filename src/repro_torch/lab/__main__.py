@@ -6,13 +6,31 @@
                                        [--device cpu]
     python -m repro_torch.lab campaign [--smoke] [--out models/lab]
                                        [--device cpu]
+    python -m repro_torch.lab fuzz [--smoke] [--seed 0] [--out reports/fuzz]
+                                   [--device cpu]
+    python -m repro_torch.lab trace <scenario> [--stride 20]
+                                    [--out reports/trace] [--device cpu]
+    python -m repro_torch.lab trace --from-report reports/fuzz/report.json \
+                                    --fingerprint <fp>
+    python -m repro_torch.lab diagnose <scenario> [--out reports/diagnose]
+    python -m repro_torch.lab diagnose --from-report \
+        reports/fuzz/report.json [--fingerprint <fp> | --all]
 
 ``evaluate`` runs every registered scenario (or the named subset) under
 every static θ plus DIAL and writes ``report.json`` / ``report.md``;
 ``campaign`` runs batched offline collection + training and saves a
-versioned model artifact.  ``--smoke`` shrinks each to CI size.
-``--device`` defaults to the CUDA card; ``--device cpu`` runs the
-kernels' plain versions.
+versioned model artifact.  ``fuzz`` generates scenarios
+deterministically from a seed, races DIAL against a static-θ grid
+through the fused batch path, and writes an auto-triaged
+``reports/fuzz/`` of every scenario DIAL loses (with a counterfactual
+diagnosis of each unless ``--no-diagnose``).  ``trace`` replays one
+scenario (catalog name, or a triaged fuzz loser by fingerprint) through
+the traced fused loop and writes decision provenance + per-OST
+timelines as JSONL, Chrome ``trace_event`` and a markdown digest.
+``diagnose`` replays a scenario under the counterfactual intervention
+arms and writes a dominant-cause diagnosis with per-interval evidence.
+``--smoke`` shrinks each to CI size.  ``--device`` defaults to the CUDA
+card; ``--device cpu`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -75,6 +93,49 @@ def _cmd_campaign(args) -> None:
           f"trainer {info['train_meta']['trainer_backend']}")
 
 
+def _cmd_fuzz(args) -> None:
+    import dataclasses
+
+    from repro_torch import resolve_device
+    from repro_torch.core.model import DIALModel
+    from repro_torch.lab.evaluate import default_model
+    from repro_torch.lab.fuzz import (SMOKE, FuzzConfig, run_sweep,
+                                      write_fuzz_report)
+
+    cfg = SMOKE if args.smoke else FuzzConfig()
+    over = {"seed": args.seed}
+    if args.n is not None:
+        over["n_scenarios"] = args.n
+    if args.seconds is not None:
+        over["seconds"] = args.seconds
+    if args.threshold is not None:
+        over["loss_threshold"] = args.threshold
+    cfg = dataclasses.replace(cfg, **over)
+    dev = resolve_device(args.device)
+    model = (DIALModel.load(args.model, device=dev) if args.model
+             else default_model(smoke=args.smoke, root=args.models_root,
+                                device=dev))
+    report = run_sweep(cfg, model, diagnose=not args.no_diagnose,
+                       max_diagnoses=args.max_diagnoses,
+                       ragged=not args.no_ragged, device=dev)
+    jpath, mpath = write_fuzz_report(report, args.out)
+    s = report["summary"]
+    print(f"{s['n_scenarios']} scenarios, {s['n_buckets']} buckets, "
+          f"{s['n_dispatches']} fused runs -> {jpath} / {mpath}")
+    for b in s["bucket_occupancy"]:
+        print(f"  bucket {b['shape']}: {b['n_specs']} specs, "
+              f"{b['dispatches']} run(s), "
+              f"pad waste {100 * b['pad_waste']:.1f}%")
+    causes = s.get("loss_causes")
+    by_cause = ("" if causes is None else " [" + (
+        ", ".join(f"{c}: {n}" for c, n in causes.items()) or "no causes")
+        + "]")
+    print(f"mean DIAL frac of best static "
+          f"{100 * s['mean_dial_frac_of_best_static']:.1f}%, "
+          f"{s['n_losses']} loss(es) beyond "
+          f"{100 * cfg.loss_threshold:.0f}%" + by_cause)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.lab",
                                  description=__doc__)
@@ -116,9 +177,112 @@ def main(argv=None) -> None:
     cp.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
 
+    fz = sub.add_parser("fuzz", help="seeded scenario fuzzing: generate, "
+                                     "race vs static grid, auto-triage")
+    fz.add_argument("--seed", type=int, default=0)
+    fz.add_argument("--n", type=int, default=None,
+                    help="number of scenarios (default: config's)")
+    fz.add_argument("--seconds", type=float, default=None)
+    fz.add_argument("--threshold", type=float, default=None,
+                    help="triage loss threshold X: flag scenarios where "
+                         "DIAL < (1-X) * best static")
+    fz.add_argument("--model", default=None,
+                    help="DIALModel prefix (default: evaluate's model "
+                         "resolution order)")
+    fz.add_argument("--models-root", default="models/lab")
+    fz.add_argument("--no-ragged", action="store_true",
+                    help="bucket by exact structure instead of padded "
+                         "shape class (more runs, no padding)")
+    fz.add_argument("--out", default="reports/fuzz")
+    fz.add_argument("--smoke", action="store_true",
+                    help="CI-sized sweep (64 scenarios, 3 s, 6 static "
+                         "arms, two topologies)")
+    fz.add_argument("--no-diagnose", action="store_true",
+                    help="skip stamping a counterfactual diagnosis into "
+                         "each triaged loser")
+    fz.add_argument("--max-diagnoses", type=int, default=None,
+                    help="diagnose at most N losers (worst first; the "
+                         "report records diagnosed-of-total; default: "
+                         "every triaged loser)")
+    fz.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+
+    tr = sub.add_parser("trace", help="replay one scenario traced; write "
+                                      "JSONL + Chrome trace + summary")
+    tr.add_argument("scenario", nargs="?", default=None,
+                    help="catalog scenario name (see `list`)")
+    tr.add_argument("--from-report", default=None,
+                    help="fuzz report.json to pull a triaged loser from")
+    tr.add_argument("--fingerprint", default=None,
+                    help="which triaged loss to replay (with "
+                         "--from-report)")
+    tr.add_argument("--stride", type=int, default=20,
+                    help="timeline downsampling: one sample every N "
+                         "engine ticks")
+    tr.add_argument("--no-timeline", action="store_true",
+                    help="decision provenance only (no per-tick records)")
+    tr.add_argument("--diagnose", action="store_true",
+                    help="also run the counterfactual diagnosis and "
+                         "stamp its verdict into every sink (JSONL "
+                         "record, Perfetto marker track, md section)")
+    tr.add_argument("--seconds", type=float, default=10.0)
+    tr.add_argument("--interval", type=float, default=0.5)
+    tr.add_argument("--model", default=None,
+                    help="DIALModel prefix (default: evaluate's model "
+                         "resolution order)")
+    tr.add_argument("--out", default="reports/trace")
+    tr.add_argument("--smoke", action="store_true",
+                    help="allow the smoke-grade campaign model")
+    tr.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+
+    dg = sub.add_parser("diagnose", help="counterfactual replay: "
+                                         "attribute a loss to a cause "
+                                         "with per-interval evidence")
+    dg.add_argument("scenario", nargs="?", default=None,
+                    help="catalog scenario name (see `list`)")
+    dg.add_argument("--from-report", default=None,
+                    help="fuzz report.json to pull triaged loser(s) from")
+    dg.add_argument("--fingerprint", default=None,
+                    help="which triaged loss to diagnose (with "
+                         "--from-report)")
+    dg.add_argument("--all", action="store_true",
+                    help="diagnose every triaged loss of --from-report")
+    dg.add_argument("--seconds", type=float, default=3.0)
+    dg.add_argument("--interval", type=float, default=0.5)
+    dg.add_argument("--threshold", type=float, default=0.05,
+                    help="loss threshold X for the cause cascade")
+    dg.add_argument("--max-evidence", type=int, default=8,
+                    help="evidence rows kept per diagnosis (total is "
+                         "always recorded)")
+    dg.add_argument("--model", default=None,
+                    help="DIALModel prefix (default: evaluate's model "
+                         "resolution order)")
+    dg.add_argument("--alt-model", default=None,
+                    help="second DIALModel prefix for the model_swap "
+                         "arm (was the artifact version the loss?)")
+    dg.add_argument("--no-ragged", action="store_true",
+                    help="replay losers one at a time instead of one "
+                         "traced run per padded shape bucket")
+    dg.add_argument("--out", default="reports/diagnose")
+    dg.add_argument("--smoke", action="store_true",
+                    help="allow the smoke-grade campaign model")
+    dg.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+
     args = ap.parse_args(argv)
+    if args.cmd == "trace":
+        from repro_torch.lab.trace import main as trace_main
+
+        trace_main(args)
+        return
+    if args.cmd == "diagnose":
+        from repro_torch.lab.diagnose import main as diagnose_main
+
+        diagnose_main(args)
+        return
     {"list": _cmd_list, "evaluate": _cmd_evaluate,
-     "campaign": _cmd_campaign}[args.cmd](args)
+     "campaign": _cmd_campaign, "fuzz": _cmd_fuzz}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -374,11 +374,14 @@ class BatchEngine:
         self.n_ticks = int(n_ticks)
 
     def run_interval(self, table: WorkloadTable, state: SimState,
-                     wstate: WorkloadState, sched: Disturbance | None = None):
+                     wstate: WorkloadState, sched: Disturbance | None = None,
+                     tracer=None):
         """Advance every element one interval (``sched``: the fleet's
-        ``(n_ticks, ...)`` schedule on the device, or ``None``)."""
+        ``(n_ticks, ...)`` schedule on the device, or ``None``; ``tracer``
+        the host tracer sampling its ticks)."""
         return FusedEngine(self.params, self.topo, table,
-                           self.n_ticks).run_interval(state, wstate, sched)
+                           self.n_ticks).run_interval(state, wstate, sched,
+                                                      tracer)
 
 
 class BatchPort:
@@ -438,16 +441,24 @@ def run_batch(batch: ScenarioBatch, model=None, seconds: float = 10.0,
     :class:`~repro_torch.pfs.loop_torch.Intervention` with a ``(B, n)``
     leading shape; never-tuned elements ignore their rows.
 
-    ``mesh=`` and ``trace=`` are not ported (ROADMAP Queue 1 #11 and
-    #9).
+    ``trace`` (a :class:`~repro_torch.obs.schema.TraceConfig`) opts the
+    run into telemetry.  Fused runs return the records on
+    ``result.trace`` (normalize with
+    :meth:`~repro_torch.obs.schema.RunTrace.from_fused`); the timeline
+    covers every element, and the decision columns of never-tuned
+    elements carry the reference's inert placeholder record (``decided``
+    false, the applied θ, zeroed gate metrics).  The host path records
+    through the fleet agent's
+    :class:`~repro_torch.obs.host.HostTracer` (``fleet.trace``), its
+    timeline sampled in the engine's tick loop; an untuned host batch
+    has no agent and is refused.
+
+    ``mesh=`` is not ported (ROADMAP Queue 1 #11).
     """
     if mesh is not None:
         raise NotImplementedError("run_batch(mesh=...): the multi-device "
                                   "fleet is not ported (ROADMAP Queue 1 "
                                   "#11)")
-    if trace is not None:
-        raise NotImplementedError("run_batch(trace=...): observability is "
-                                  "not ported (ROADMAP Queue 1 #9)")
     steps = max(int(round(interval / batch.params.tick)), 1)
     n_intervals = int(round(seconds / interval))
 
@@ -459,18 +470,29 @@ def run_batch(batch: ScenarioBatch, model=None, seconds: float = 10.0,
             raise ValueError("`engine` configures the per-interval host "
                              "path; the fused path builds its own loops")
         return _run_batch_fused(batch, model, steps, n_intervals,
-                                tuner_params, tune_cols, intervene, graph)
+                                tuner_params, tune_cols, intervene, graph,
+                                trace)
     if intervene is not None:
         raise ValueError("intervene= rides the fused batch path -- pass "
                          "fused=True")
     if graph is not None:
         raise ValueError("graph= applies to fused=True only")
+    if trace is not None and model is None:
+        raise ValueError("host-path tracing records decision provenance "
+                         "through the fleet agent -- untuned host batches "
+                         "have neither (use fused=True for timelines)")
 
     engine = engine or BatchEngine(batch.params, batch.fleet, steps)
-    fleet = None
+    fleet = tracer = None
     if model is not None:
+        if trace is not None:
+            from repro_torch.obs.host import HostTracer
+
+            tracer = HostTracer(trace, batch.params, batch.fleet)
         fleet = FleetAgent(BatchPort(batch, cols=tune_cols), model,
-                           tuner_params=tuner_params, device=batch.device)
+                           tuner_params=tuner_params, device=batch.device,
+                           tracer=tracer)
+        fleet.trace = None
     # the whole run's schedule, copied once and sliced per interval
     # (make_schedule is a pure function of the absolute tick index)
     full = batch.schedule(0, n_intervals * steps).to(batch.device)
@@ -478,9 +500,12 @@ def run_batch(batch: ScenarioBatch, model=None, seconds: float = 10.0,
         sched = Disturbance(*(getattr(full, f.name)[i * steps:(i + 1) * steps]
                               for f in dataclasses.fields(Disturbance)))
         batch.state, batch.wstate = engine.run_interval(
-            batch.table, batch.state, batch.wstate, sched)
+            batch.table, batch.state, batch.wstate, sched, tracer=tracer)
         if fleet is not None:
             fleet.tick()
+    if tracer is not None:
+        fleet.trace = tracer.run_trace(fleet.oscs, interval,
+                                       batch.params.tick)
     return fleet
 
 
@@ -536,14 +561,17 @@ def _account(run: dict) -> None:
 
 
 def _cached_loop(params, topo: SimTopo, steps: int, model,
-                 tuner_params) -> FusedLoop:
+                 tuner_params, trace=None) -> FusedLoop:
     key = (id(model), model._version,
            params, topo.n_clients, topo.n_osts,
            # same-sized topologies can differ in wiring; the loop's
            # segment maps are the wiring
            topo.osc_client.cpu().numpy().tobytes(),
            topo.osc_ost.cpu().numpy().tobytes(),
-           int(steps), tuner_params, str(topo.device))
+           int(steps), tuner_params, str(topo.device),
+           # a traced loop's interval has more outputs: traced and
+           # untraced runs never share a loop, nor its graph
+           trace)
     if key not in _FUSED_LOOPS:
         _CACHE_STATS["misses"] += 1
         if len(_FUSED_LOOPS) >= 32:          # bound the cache: evict the
@@ -551,7 +579,8 @@ def _cached_loop(params, topo: SimTopo, steps: int, model,
         # the entry pins the model: the key holds id(model), unique only
         # while the object lives
         _FUSED_LOOPS[key] = (FusedLoop(params, topo, steps, model,
-                                       tuner_params=tuner_params), model)
+                                       tuner_params=tuner_params,
+                                       trace=trace), model)
     else:
         _CACHE_STATS["hits"] += 1
     return _FUSED_LOOPS[key][0]
@@ -559,7 +588,7 @@ def _cached_loop(params, topo: SimTopo, steps: int, model,
 
 def _run_batch_fused(batch: ScenarioBatch, model, steps: int,
                      n_intervals: int, tuner_params, tune_cols, intervene,
-                     graph) -> FusedLoopResult:
+                     graph, trace=None) -> FusedLoopResult:
     """The batched run on the device: one tuned loop over the whole
     fleet.  Elements with no tuned interface (the static-θ arms of an
     evaluation) ride it with their tune mask off, so they never decide;
@@ -580,10 +609,31 @@ def _run_batch_fused(batch: ScenarioBatch, model, steps: int,
                else np.asarray(pin, dtype=bool)).reshape(b, n)
         intervene = intervene._replace(pin_mask=pin & tuned[:, None])
     loop = _cached_loop(batch.params, batch.fleet, steps, model,
-                        tuner_params)
+                        tuner_params, trace)
     result = loop.run(batch.table, batch.state, batch.wstate, n_intervals,
                       schedule=batch.schedule(0, n_intervals * steps),
                       tune_mask=mask, intervene=intervene, graph=graph)
     _account(loop.last_run)
     batch.state, batch.wstate = result.state, result.wstate
+    if trace is not None and not tuned.all():
+        _placeholder_untuned(result.trace, np.repeat(~tuned, n))
     return result
+
+
+# the records a never-tuned element's columns keep in a traced batch;
+# the rest are zeroed (the reference runs such elements in an
+# engine-only loop that has no decision path, and fills them so)
+_PLACEHOLDER_KEEPS = ("t", "warm", "theta", "cur_theta")
+
+
+def _placeholder_untuned(trace: dict, cols: np.ndarray) -> None:
+    """Give the never-tuned columns ``cols`` (a fleet-wide bool mask) of
+    a traced run's records the reference's inert placeholder record:
+    ``decided`` false, θ the applied knobs (probe-time θ, which never
+    changes on such an element), every other field zero."""
+    cols = torch.as_tensor(cols)
+    for key, v in trace.items():
+        if key == "timeline" or key in _PLACEHOLDER_KEEPS:
+            continue
+        v[:, cols] = 0
+    trace["theta"][:, cols] = trace["cur_theta"][:, cols]

@@ -28,9 +28,12 @@ class FusedEngine:
         self.n_ticks = int(n_ticks)
 
     def run_interval(self, state: SimState, wstate: WorkloadState,
-                     schedule: Disturbance | None = None):
+                     schedule: Disturbance | None = None, tracer=None):
         """Advance one interval.  ``schedule`` is a :class:`Disturbance`
         with a leading ``(n_ticks, ...)`` axis; tick ``i`` uses row ``i``.
+        ``tracer`` (a :class:`~repro_torch.obs.host.HostTracer`) samples
+        the state after the ticks it wants, with that tick's row, on the
+        device.
         """
         for i in range(self.n_ticks):
             demand, wstate = self.table.demand_step(self.params, wstate,
@@ -38,4 +41,6 @@ class FusedEngine:
             dist = None if schedule is None else schedule.at_tick(i)
             state = engine_step(self.params, self.topo, state, demand,
                                 disturbance=dist)
+            if tracer is not None and tracer.wants_sample(i, self.n_ticks):
+                tracer.sample(state, dist)
         return state, wstate

@@ -56,7 +56,19 @@ The captured interval is keyed on the table's content
 (:attr:`WorkloadTable.key`), so a rebuilt batch of the same scenarios
 replays it.
 
-Not ported here: the reference's ``mesh=`` and ``trace=``.
+``trace=TraceConfig(...)`` (:mod:`repro_torch.obs`) opts the loop into
+telemetry, the counterpart of the reference's traced scan outputs.  The
+interval's record gains the decision provenance (``t``, ``vol_r``,
+``vol_w``, ``active``, ``steady``, ``warm``, ``ratio``, ``cur_theta``:
+values the interval computes anyway, so tracing adds outputs, never
+arithmetic, and θ and the state are bit for bit the untraced run's),
+and with a timeline one :func:`~repro_torch.obs.schema.timeline_tap`
+after ticks ``stride-1, 2*stride-1, ...`` of the interval, each with
+that tick's schedule row.  On the card they are more static outputs of
+the captured interval, copied after each replay like the decision
+record.  :meth:`FusedLoop.run_trace` normalizes a traced result.
+
+Not ported here: the reference's ``mesh=``.
 """
 
 from __future__ import annotations
@@ -78,14 +90,18 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.gbdt_forest.ops import (pair_forests,
                                                  paired_forest_margin,
                                                  sigmoid32)
+from repro_torch.obs.schema import TraceConfig, timeline_tap
 from repro_torch.pfs.state import (F64, READ, WRITE, Disturbance, SimParams,
                                    SimState, SimTopo, engine_step)
 from repro_torch.pfs.workloads import WorkloadState, WorkloadTable
 
 I64 = torch.int64
-# the decision record of one interval, every interface
-RECORD = ("decided", "ops", "theta", "changed", "n_candidates", "score",
-          "probs")
+# what a traced interval's record adds to the decision record: the
+# decision provenance, then the timeline's samples under
+# "timeline.<field>" keys
+PROVENANCE = ("t", "vol_r", "vol_w", "active", "steady", "warm", "ratio",
+              "cur_theta")
+TIMELINE = "timeline."
 
 
 class Intervention(NamedTuple):
@@ -192,7 +208,9 @@ class FusedLoopResult:
     ``decisions`` holds one :class:`~repro_torch.core.fleet.FleetTickResult`
     per interval (empty for gated intervals), host tensors, aligned with
     :attr:`FleetAgent.decisions`; ``trace`` the dense ``(n_intervals, n,
-    ...)`` records they come from (host tensors).  ``state``/``wstate``
+    ...)`` records they come from (host tensors), with a traced loop's
+    provenance beside them and its timeline under ``trace["timeline"]``
+    (``(n_intervals, samples, tracks)``).  ``state``/``wstate``
     stay on the loop's device, with a float ``now`` and an int
     ``tick_index``; ``hist`` is the final ``(k+1)``-deep snapshot ring
     (read and write matrices, then volumes) on the device, which
@@ -302,8 +320,10 @@ class FusedLoop:
     ``steps_per_interval`` engine ticks make an interval; ``model``,
     ``space``, ``tuner_params``, ``k``, ``min_volume_bytes`` and
     ``warmup_intervals`` are :class:`~repro_torch.core.fleet.FleetAgent`'s.
-    ``tuned=False`` is the lean engine-only run.  The loop runs on the
-    topology's device (the model must be there too).  A graph is
+    ``tuned=False`` is the lean engine-only run; ``trace`` a
+    :class:`~repro_torch.obs.schema.TraceConfig` (see the module note).
+    The loop runs on the topology's device (the model must be there
+    too).  A graph is
     captured at the first run of a (table content, schedule or not,
     intervention or not) and replayed by every later run with the same
     ones; the loop keeps only its latest graph, so a run with other ones
@@ -320,7 +340,8 @@ class FusedLoop:
                  k: int = 1,
                  min_volume_bytes: float = 256 * 1024,
                  warmup_intervals: int = 2,
-                 tuned: bool = True):
+                 tuned: bool = True,
+                 trace: TraceConfig | None = None):
         self.params = params
         self.topo = topo
         self.device = topo.device
@@ -332,6 +353,9 @@ class FusedLoop:
         self.min_volume = float(min_volume_bytes)
         self.warmup = int(warmup_intervals)
         self.tuned = bool(tuned)
+        self.trace_config = trace
+        # timeline samples an interval takes (none untraced)
+        self.n_samples = 0 if trace is None else trace.samples(self.steps)
         self._graph: tuple | None = None     # (key, table, _Graph)
         self.last_run: dict = {}
         if not self.tuned:
@@ -378,13 +402,21 @@ class FusedLoop:
         """One interval, functional: ``carry -> (carry', record)``.  No
         host read anywhere (it is what the graph captures)."""
         st, ws = carry.state, carry.wstate
+        taps = []
         for i in range(self.steps):
             demand, ws = table.demand_step(self.params, ws, st)
+            d_i = None if dist is None else dist.at_tick(i)
             st = engine_step(self.params, self.topo, st, demand,
-                             disturbance=None if dist is None
-                             else dist.at_tick(i))
+                             disturbance=d_i)
+            if self.n_samples and self.trace_config.wants_sample(
+                    i, self.steps):
+                taps.append(timeline_tap(self.params, self.topo, st, d_i))
+        extra = {TIMELINE + k: torch.stack([tap[k] for tap in taps])
+                 for k in (taps[0] if taps else ())}
         if not self.tuned:
-            return _Carry(st, ws), None
+            if self.trace_config is None:
+                return _Carry(st, ws), None
+            return _Carry(st, ws), {"t": st.now, **extra}
 
         # probe + snapshot (the host path's arithmetic), the history ring
         cur = probe_state(st)
@@ -433,6 +465,11 @@ class FusedLoop:
         record = {"decided": decide, "ops": ops, "theta": dec.theta,
                   "changed": dec.changed, "n_candidates": dec.n_candidates,
                   "score": dec.score, "probs": probs}
+        if self.trace_config is not None:
+            # the provenance is values computed above: outputs only
+            record.update(zip(PROVENANCE, (
+                st.now, vol_r, vol_w, active, steady, warm, ratio, current)))
+            record.update(extra)
         return _Carry(st, ws, cur, (hr, hw, hrv, hwv), tick), record
 
     # ------------------------------------------------------------------ #
@@ -555,16 +592,13 @@ class FusedLoop:
             graph = on_card
         if graph and not on_card:
             raise ValueError("graph=True needs the loop on a CUDA device")
-        records = None
-        if self.tuned:
-            n, m = self.topo.n_osc, len(self.space)
-            shapes = {"decided": ((n,), torch.bool), "ops": ((n,), I64),
-                      "theta": ((n, 2), I64), "changed": ((n,), torch.bool),
-                      "n_candidates": ((n,), I64), "score": ((n,), F64),
-                      "probs": ((n, m), F64)}
-            records = {k: torch.empty((n_intervals,) + s, dtype=dt,
-                                      device=self.device)
-                       for k, (s, dt) in shapes.items()}
+        records = None          # (n_intervals, ...) buffers of the records
+
+        def buffers(rec: dict) -> dict:
+            return {k: torch.empty((n_intervals,) + tuple(v.shape),
+                                   dtype=v.dtype, device=self.device)
+                    for k, v in rec.items()}
+
         # the device's span of the intervals, read after the run syncs
         events = ((torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True)) if on_card
@@ -577,20 +611,26 @@ class FusedLoop:
                 carry, rec = self._interval(
                     table, carry, self._slice(inputs.schedule, i),
                     inputs.tune_mask, inputs.intervene)
-                if records is not None:
-                    for k in RECORD:
-                        records[k][i] = rec[k]
+                if rec is not None:
+                    if records is None:
+                        records = buffers(rec)
+                    for k, v in rec.items():
+                        records[k][i] = v
             if events:
                 events[1].record()
             self.last_run = {"graph": False, "replays": 0, "events": events}
             return carry, records
 
-        key = (table.key, inputs.schedule is None, inputs.intervene is None)
+        key = (table.key, inputs.schedule is None, inputs.intervene is None,
+               self.trace_config)
         captured_now = self._graph is None or self._graph[0] != key
+        setup_s = 0.0
         if captured_now:
             self._graph = None               # free the old graph first
+            t0 = time.perf_counter()
             # the entry pins the table: the graph reads its tensors
             self._graph = (key, table, self._capture(table, inputs))
+            setup_s = time.perf_counter() - t0
         g = self._graph[2]
         for dst, src in zip(g.carry.tensors(), inputs.carry.tensors()):
             dst.copy_(src)
@@ -599,6 +639,8 @@ class FusedLoop:
         if g.intervene is not None:
             for dst, src in zip(g.intervene, inputs.intervene):
                 dst.copy_(src)
+        if g.record is not None:
+            records = buffers(g.record)
         if events:
             events[0].record()
         for i in range(n_intervals):
@@ -608,12 +650,13 @@ class FusedLoop:
                     dst.copy_(src)
             g.graph.replay()
             if records is not None:
-                for k in RECORD:
-                    records[k][i].copy_(g.record[k])
+                for k, v in g.record.items():
+                    records[k][i].copy_(v)
         events[1].record()
         self.last_run = {"graph": True, "replays": n_intervals,
                          "events": events,
                          "captured_now": captured_now,
+                         "setup_s": setup_s,
                          "launches_per_replay": dict(g.launches),
                          "capture_s": g.capture_s,
                          "instantiate_s": g.instantiate_s}
@@ -645,13 +688,30 @@ class FusedLoop:
         if events and n_intervals:
             self.last_run["device_ms_per_interval"] = \
                 events[0].elapsed_time(events[1]) / n_intervals
-        trace = (None if records is None
-                 else {k: v.cpu() for k, v in records.items()})
+        trace = None
+        if records is not None:
+            trace = {k: v.cpu() for k, v in records.items()
+                     if not k.startswith(TIMELINE)}
+            if self.n_samples:
+                trace["timeline"] = {k[len(TIMELINE):]: v.cpu()
+                                     for k, v in records.items()
+                                     if k.startswith(TIMELINE)}
         return FusedLoopResult(
             state=st, wstate=carry.wstate, trace=trace,
-            decisions=[] if trace is None else decisions_from_trace(trace),
+            decisions=(decisions_from_trace(trace)
+                       if trace is not None and "decided" in trace else []),
             hist=carry.hist, interval_seconds=self.steps * self.params.tick,
             n_run=n_intervals)
+
+    def run_trace(self, result: FusedLoopResult):
+        """Normalize a traced result to a
+        :class:`~repro_torch.obs.schema.RunTrace`."""
+        from repro_torch.obs.schema import RunTrace
+
+        if self.trace_config is None:
+            raise ValueError("loop was built without trace=TraceConfig(...)")
+        return RunTrace.from_fused(result, self.trace_config,
+                                   self.params.tick)
 
 
 def _fields(dist: Disturbance) -> tuple:

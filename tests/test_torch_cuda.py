@@ -39,7 +39,13 @@ held the same way: replayed == eager bit for bit (a rebuilt batch
 replays without a new capture; one tuned element of three too), card ==
 CPU on the fused and the host paths, no host sync in a replayed run,
 and both kernels at the fleet's maps and rows equal to their plain
-versions.
+versions.  Tracing (``repro_torch.obs``): a traced replayed interval
+bit-equal to the traced eager one and within 1e-6 of the CPU's (θ
+exact), traced == untraced θ and state bit for bit on the fused and the
+host loops, no host sync in a traced replay or in the host tracer's
+samples, the timeline tap's ``(5, E)`` segment sum bit-equal to
+``np.bincount``, and the diagnosis's 4-arm intervened, traced bucket on
+the card equal to the CPU's.
 """
 
 import numpy as np
@@ -1024,3 +1030,221 @@ def test_lab_kernels_at_fleet_maps_match_plain(cuda):
     got = ops.paired_forest_margin(
         *(torch.as_tensor(a, device=cuda) for a in arrays), depth)
     np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(), atol=1e-5)
+
+
+# --------------------------------------------------------------------- #
+# observability: the traced fused loop and the loss-finding pipeline
+# --------------------------------------------------------------------- #
+def _assert_traces_match(a: dict, b: dict, rtol: float = 0.0):
+    """Two raw fused traces (``FusedLoopResult.trace``): integer and bool
+    records equal, floating ones bit-equal (``rtol=0``) or within
+    ``rtol`` relative (floor 1; the forest's float32 margins sum in
+    another order on the card, so probabilities get 1e-5)."""
+    flat = lambda t: {**{k: v for k, v in t.items() if k != "timeline"},  # noqa: E731
+                      **{"timeline." + k: v
+                         for k, v in t.get("timeline", {}).items()}}
+    a, b = flat(a), flat(b)
+    assert a.keys() == b.keys()
+    for k in a:
+        x, y = a[k].cpu(), b[k].cpu()
+        if not x.is_floating_point() or rtol == 0.0:
+            assert torch.equal(x, y), k
+            continue
+        tol = 1e-5 if k in ("probs", "score") else rtol
+        x, y = x.double().numpy(), y.double().numpy()
+        err = np.max(np.abs(x - y) / np.maximum(np.abs(x), 1.0),
+                     initial=0.0)
+        assert err <= tol, (k, err)
+
+
+def test_traced_graph_replay_equals_eager_and_cpu(cuda):
+    """A traced loop (stride 20, a disturbed schedule) at 8 x 4: the
+    replayed intervals' records (provenance and timeline) bit-equal to
+    the eager ones on the card, twice; θ equal to the CPU's, the other
+    records within 1e-6 (probabilities 1e-5)."""
+    from repro_torch.obs.schema import TraceConfig
+    from repro_torch.pfs.loop_torch import FusedLoop
+    from repro_torch.pfs.workloads import table_from_sim
+
+    rng = np.random.default_rng(23)
+    forests = [random_forest(rng, feature_dim(op), 20, 4)
+               for op in (READ, WRITE)]
+    cfg = TraceConfig(stride=20)
+    out = {}
+    for dev in ("cpu", cuda):
+        sim = _loop_sim(dev, 8, 4)
+        table, wstate = table_from_sim(sim)
+        loop = FusedLoop(sim.params, sim.topo, 100,
+                         model_from_numpy(*forests, device=dev), trace=cfg)
+        sched = _disturbed(sim, 6 * 100, np.random.default_rng(2))
+        out[str(dev)] = [loop.run(table, sim.state, wstate, 6,
+                                  schedule=sched, graph=False)]
+        if dev == cuda:
+            for captured in (True, False):
+                out[str(dev)].append(loop.run(table, sim.state, wstate, 6,
+                                              schedule=sched))
+                assert loop.last_run["captured_now"] is captured
+            trace = loop.run_trace(out[str(dev)][-1])
+            trace.validate()
+            assert trace.timeline["read_bytes"].shape == (30, 4)
+    eager, *graphs = out[str(cuda)]
+    for got in graphs:
+        _assert_traces_match(eager.trace, got.trace)
+    cpu = out["cpu"][0]
+    assert torch.equal(cpu.trace["theta"], eager.trace["theta"].cpu())
+    assert torch.equal(cpu.trace["decided"], eager.trace["decided"].cpu())
+    _assert_traces_match(cpu.trace, eager.trace, rtol=1e-6)
+    assert bool(eager.trace["changed"].any())
+
+
+def test_traced_equals_untraced_on_card(cuda):
+    """run_fleet on the card, traced and not, fused (graphs) and host:
+    decision records and every state field bit-equal; the host trace
+    equals the fused trace."""
+    import dataclasses
+
+    from repro_torch.obs.schema import DECISION_FIELDS, TraceConfig
+
+    rng = np.random.default_rng(29)
+    model = model_from_numpy(*(random_forest(rng, feature_dim(op), 20, 4)
+                               for op in (READ, WRITE)), device=cuda)
+    runs = {}
+    for backend in ("torch-fused", "torch"):
+        for trace in (None, TraceConfig(stride=10)):
+            sim = _loop_sim(cuda, 8, 4)
+            runs[backend, trace is not None] = (sim, run_fleet(
+                sim, model, seconds=3.0, interval=0.5, device=cuda,
+                backend=backend, trace=trace))
+    for backend in ("torch-fused", "torch"):
+        (sim_t, f_t), (sim_u, f_u) = runs[backend, True], runs[backend, False]
+        assert len(f_t.decisions) == len(f_u.decisions) == 6
+        for a, b in zip(f_t.decisions, f_u.decisions):
+            assert torch.equal(a.oscs, b.oscs)
+            for f in dataclasses.fields(a.decisions):
+                assert torch.equal(getattr(a.decisions, f.name),
+                                   getattr(b.decisions, f.name)), f.name
+        for f in dataclasses.fields(sim_t.state):
+            a, b = getattr(sim_t.state, f.name), getattr(sim_u.state, f.name)
+            assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), \
+                f.name
+    fused, host = (runs[b, True][1].trace for b in ("torch-fused", "torch"))
+    fused.validate()
+    host.validate()
+    for f in ("decided", "ops", "theta", "changed", "n_candidates", "active",
+              "steady", "warm"):
+        np.testing.assert_array_equal(host.decisions[f], fused.decisions[f],
+                                      err_msg=f)
+    for f in set(DECISION_FIELDS) - {"decided", "ops", "theta", "changed",
+                                     "n_candidates", "active", "steady",
+                                     "warm"}:
+        np.testing.assert_allclose(host.decisions[f], fused.decisions[f],
+                                   rtol=1e-12, atol=0, err_msg=f)
+    for f in fused.timeline:
+        np.testing.assert_array_equal(host.timeline[f], fused.timeline[f],
+                                      err_msg=f)
+
+
+def test_traced_replay_and_host_sampling_make_no_host_sync(cuda):
+    """A traced replayed run, a traced eager interval and the host
+    tracer's samples in the engine's tick loop make no host sync."""
+    from repro_torch.obs.host import HostTracer
+    from repro_torch.obs.schema import TraceConfig
+    from repro_torch.pfs.engine_torch import FusedEngine
+    from repro_torch.pfs.loop_torch import FusedLoop
+    from repro_torch.pfs.workloads import table_from_sim
+
+    rng = np.random.default_rng(31)
+    model = model_from_numpy(*(random_forest(rng, feature_dim(op), 20, 4)
+                               for op in (READ, WRITE)), device=cuda)
+    sim = _loop_sim(cuda, 8, 4)
+    table, wstate = table_from_sim(sim)
+    cfg = TraceConfig(stride=10)
+    loop = FusedLoop(sim.params, sim.topo, 100, model, trace=cfg)
+    loop.run(table, sim.state, wstate, 2)                 # the capture
+    tracer = HostTracer(cfg, sim.params, sim.topo)
+    engine = FusedEngine(sim.params, sim.topo, table, 100)
+    for graph in (True, False):
+        inputs = loop.prepare(sim.state, wstate, 3)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop.advance(table, inputs, 3, graph=graph)
+            if not graph:
+                engine.run_interval(sim.state, wstate, tracer=tracer)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert len(tracer._tl) == 10
+
+
+def test_timeline_tap_segment_sum_bit_equal_to_bincount(cuda):
+    """The tap's ``(5, E)`` launch on the OST map, at the smoke fleet's
+    map (8,192 interfaces, 32 OSTs) and a small one, bit-equal to
+    ``np.bincount`` of each row; the tap of a card state equals the
+    CPU's on the same state."""
+    from repro_torch.obs.schema import timeline_tap
+    from repro_torch.pfs.engine_torch import FusedEngine
+    from repro_torch.pfs.workloads import table_from_sim
+
+    rng = np.random.default_rng(37)
+    for n_clients, n_osts in ((256, 32), (8, 4)):
+        sim = PFSSim(n_clients, n_osts, device=cuda)
+        v = rng.standard_normal((5, sim.n_osc)) * 10.0 ** rng.uniform(
+            0, 9, (5, sim.n_osc))
+        LAUNCHES.clear()
+        got = segment_sum(torch.as_tensor(v, device=cuda), sim.topo.ost_map)
+        assert LAUNCHES["segment_sum"] == 1
+        ids = sim.topo.osc_ost.cpu().numpy()
+        for r in range(5):
+            want = np.bincount(ids, weights=v[r], minlength=n_osts)
+            assert np.array_equal(got[r].cpu().numpy(), want), r
+    sim = _loop_sim(cuda, 8, 4)
+    table, wstate = table_from_sim(sim)
+    state, _ = FusedEngine(sim.params, sim.topo, table, 60).run_interval(
+        sim.state, wstate)
+    sim_c = _loop_sim("cpu", 8, 4)
+    state_c = type(state)(**{f: (v.cpu() if torch.is_tensor(v) else v)
+                             for f, v in vars(state).items()})
+    LAUNCHES.clear()
+    tap = timeline_tap(sim.params, sim.topo, state)
+    assert LAUNCHES["segment_sum"] == 1
+    tap_c = timeline_tap(sim_c.params, sim_c.topo, state_c)
+    for k, v in tap.items():
+        assert torch.equal(torch.as_tensor(v).cpu(),
+                           torch.as_tensor(tap_c[k])), k
+
+
+def test_intervened_traced_bucket_on_card_matches_cpu(cuda):
+    """The diagnosis's replay: a 4-arm (factual, pin θ*, gates open,
+    freeze) intervened, traced bucket of two catalog scenarios, on the
+    card (graphs) and the CPU: arms' MB/s within 1e-9, every factual
+    decision record equal (probabilities 1e-5)."""
+    import importlib
+
+    from repro_torch.lab.scenarios import get_scenario
+
+    # the module (``repro_torch.obs`` exports a function ``diagnose``)
+    D = importlib.import_module("repro_torch.obs.diagnose")
+
+    cases = [(get_scenario("noisy_neighbor"), (1024, 32)),
+             (get_scenario("dlio_bert"), (64, 2))]
+    cfg = D.DiagnoseConfig(seconds=3.0)
+    out = {}
+    for dev in ("cpu", cuda):
+        LAUNCHES.clear()
+        out[str(dev)] = (D.replay_arms_many(cases, _lab_model(dev), cfg,
+                                            device=dev), dict(LAUNCHES))
+    (cpu, l_cpu), (card, l_card) = out["cpu"], out[str(cuda)]
+    assert l_cpu == {} and l_card["paired_forest_margin"] > 0
+    for (arms_c, fact_c), (arms_d, fact_d) in zip(cpu, card):
+        assert arms_c.keys() == arms_d.keys() == set(D.ARMS)
+        for arm in arms_c:
+            np.testing.assert_allclose(arms_d[arm], arms_c[arm], rtol=1e-9)
+        for k, v in fact_c.items():
+            if v.dtype.kind in "bi":
+                np.testing.assert_array_equal(fact_d[k], v, err_msg=k)
+            else:
+                np.testing.assert_allclose(
+                    fact_d[k], v, rtol=1e-5 if k in ("probs", "score")
+                    else 1e-9, atol=1e-9, err_msg=k)
+        assert arms_c["pin_best_static"] != arms_c["factual"]

@@ -78,6 +78,21 @@ def test_serving_slice_modules_are_probed():
             "repro_torch.launch.serve", *kernels} <= names
 
 
+def test_observability_slice_modules_are_probed():
+    """The walk above reaches the observability and loss-finding
+    modules."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.obs", "repro_torch.obs.schema",
+            "repro_torch.obs.host", "repro_torch.obs.sinks",
+            "repro_torch.obs.timers", "repro_torch.obs.diagnose",
+            "repro_torch.lab.fuzz", "repro_torch.lab.trace",
+            "repro_torch.lab.diagnose"} <= names
+
+
 def test_no_jax_or_reference_import_in_sources():
     files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:

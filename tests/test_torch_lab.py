@@ -473,7 +473,7 @@ def test_refusals():
     batch = _mixed_batch()
     with pytest.raises(NotImplementedError, match="#11"):
         B.run_batch(batch, None, mesh=object())
-    with pytest.raises(NotImplementedError, match="#9"):
+    with pytest.raises(ValueError, match="untuned host batches"):
         B.run_batch(batch, None, trace=object())
     with pytest.raises(ValueError, match="requires a model"):
         B.run_batch(batch, None, fused=True)

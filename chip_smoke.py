@@ -108,7 +108,27 @@ Phases, in order; any failure exits non-zero:
    fleet's OST map) and on each fuzz bucket's maps, and the forest on
    each bucket's rows, against their plain versions.  Launches of each
    run go into rows 1 and 2.  Its outputs are written under
-   ``build/obs/``.
+   ``build/obs/``;
+11. the rest of DIAL's side, with the same model: ``run_comparison(
+   "failing_ost")`` (frozen vs online refit, 90 intervals x 2 arms,
+   refits of 40 x 5 trees) on the card here and in a child process
+   (reports byte-identical) and on the CPU in another child (the frozen
+   arm bit-equal, the online arm through its first refit; a later
+   difference is logged with its interval); ``continual --hard-from``
+   on phase 10's cut-sweep report with the ``--smoke`` settings through
+   the CLI in a third child (the after races capture anew); the three
+   children run beside the first comparison (each a host-bound loop on
+   its own cores);
+   ``FleetAgent(measure_overhead=True)`` on phase 6's fleet for its 10
+   intervals (θ identical to phase 6's host loop; per-interface
+   snapshot, inference and end-to-end ms); the wide batch through
+   ``run_batch(fused=True, mesh=fleet_mesh())`` on graphs beside the
+   unsharded run, alternated (bit-equal; ms per replayed interval of
+   each); and the three kernels at the continual path's shapes
+   (``segment_sum`` on the 4 x 4 scenario's maps, the paired forest on
+   its 16 x 24 rows, ``tree_histogram`` on the first refit's rows)
+   against their plain versions.  Launches go into rows 1, 2 and 4;
+   outputs under ``build/dial/``.
 
 It prints one JSON line of kernel results, the ``nvidia-smi`` name and
 power limit, and as its last line
@@ -144,6 +164,10 @@ PAPER_ROWS = {"read": 100_000, "write": 98_000}   # paper SIV-A sample counts
 # (n_nodes, right children parked on the drop id) of a depth-5 tree's
 # five histogram launches: the root, then the left children of each level
 LEVELS = ((1, False), (1, True), (2, True), (4, True), (8, True))
+
+
+# what a later phase holds against phase 6's host loop
+MAIN_PATH: dict = {}
 
 
 def log(*a):
@@ -996,6 +1020,7 @@ def run_phases(seed: int, model_prefix, dev) -> tuple:
             or p_space.shape[0] != sim.n_osc * 24:
         raise AssertionError("main path: read-model scores malformed")
     fused_check(fleet, sim, fused)
+    MAIN_PATH["trajectory"] = trajectory(fleet)   # phase 11's overhead run
     graph_run = fused["graph"]["run"]
     replays = graph_run["replays"]
     graph_counts = {k: v * replays
@@ -2273,12 +2298,13 @@ def obs_kernels(model, fuzz_cfg, rng) -> tuple:
     return seg, forests
 
 
-def obs_phase(model, seed: int, dev, kernels: list, card: str) -> None:
+def obs_phase(model, seed: int, dev, kernels: list, card: str) -> str:
     """Phase 10, observability and the loss-finding pipeline, on the
     model phase 3 trained: the traced fleet, the fuzz sweep (twice) and
     ``diagnose_many`` of its losers, the cut sweep on the card and the
     CPU, the worst loser's trace, and the two kernels at the tap's and
-    the fuzz buckets' shapes; launches go into the kernels' rows."""
+    the fuzz buckets' shapes; launches go into the kernels' rows.
+    Returns the cut sweep's ``report.json`` (phase 11's curriculum)."""
     import torch
 
     from repro_torch.convert import forest_to_numpy, model_from_numpy
@@ -2336,6 +2362,405 @@ def obs_phase(model, seed: int, dev, kernels: list, card: str) -> None:
         cut_sweep={k: summary(v) for k, v in cut["runs"].items()},
         trace=tr, phase_s=time.perf_counter() - t_phase)
     log(f"{card} | phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return cut["runs"]["graphs"]["jpath"]
+
+
+# ---------------------------------------------------------------------- #
+# phase 11: continual refit, the hard-case curriculum, overhead, the mesh
+# ---------------------------------------------------------------------- #
+CONT_SCENARIO = "failing_ost"             # run_comparison's default
+DIAL_ROOT = os.path.join(ROOT, "build", "dial")
+
+# A child process's run, its result, seconds and launches into
+# ``<out>/run.json``: the second card comparison and the curriculum run
+# beside the first card comparison, each process a host loop on its own
+# cores (the paths are host-bound), and the CPU comparison (plain
+# versions, one torch thread) beside them too.
+CHILD_RUN = r"""
+import json, os, sys, time
+import torch
+from repro_torch.kernels import LAUNCHES
+from repro_torch.lab import batch as LB
+what, prefix, out, arg = sys.argv[1:5]
+dev = torch.device("cpu" if what == "cpu" else "cuda")
+if dev.type == "cpu":
+    torch.set_num_threads(1)
+sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" else (
+    lambda: None)
+sync()
+LAUNCHES.clear()
+t0 = time.perf_counter()
+if what == "curriculum":
+    from repro_torch.lab.__main__ import main
+    main(["continual", "--hard-from", arg, "--smoke", "--model", prefix,
+          "--out", out])
+else:
+    from repro_torch.core.model import DIALModel
+    from repro_torch.lab.continual import run_comparison, write_report
+    model = DIALModel.load(prefix, device=dev)
+    write_report(run_comparison(arg, model, device=dev), out)
+sync()
+secs = time.perf_counter() - t0
+os.makedirs(out, exist_ok=True)
+with open(os.path.join(out, "run.json"), "w") as f:
+    json.dump({"seconds": secs, "counts": dict(LAUNCHES),
+               "loop_cache": LB.loop_cache_stats()}, f)
+"""
+
+
+def _child(what: str, prefix: str, out: str, arg: str):
+    """Start one of ``CHILD_RUN``'s runs (the CPU one sees no card)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    if what == "cpu":
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.Popen([sys.executable, "-c", CHILD_RUN, what, prefix,
+                             out, arg], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finish_child(proc, out: str, what: str) -> dict:
+    """Wait for a child; its ``run.json``, and the seconds waited."""
+    t0 = time.perf_counter()
+    log_text, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} (child process) failed: "
+                             f"{log_text[-2000:]}")
+    with open(os.path.join(out, "run.json")) as f:
+        return dict(json.load(f), wait_s=time.perf_counter() - t0,
+                    log=log_text)
+
+
+def _first_diff(a: list, b: list):
+    """Index of the first differing entry of two series (None: equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def dial_comparison(model, dev, card: str, children: dict) -> dict:
+    """``run_comparison("failing_ost")`` at its defaults on the card, here
+    and in a child process (the two reports byte-identical), and in a
+    child on the CPU: the frozen arm bit-equal, the online arm bit-equal
+    through its first refit; a later difference is stated, not hidden.
+    The first refit's buffer rows are kept for the ``tree_histogram``
+    check."""
+    from repro_torch.lab.continual import run_comparison, write_report
+    from repro_torch.learn import online as O
+
+    first = {}
+    orig = O.OnlineTrainer._refit
+
+    def refit(self, ops, reason, tput):        # keep the first refit's rows
+        if "data" not in first:
+            first["data"] = [self.buffers[op].dataset() for op in ops]
+        return orig(self, ops, reason, tput)
+
+    O.OnlineTrainer._refit = refit
+    try:
+        rep, secs, counts = counted(lambda: run_comparison(
+            CONT_SCENARIO, model, device=dev))
+    finally:
+        O.OnlineTrainer._refit = orig
+    with open(write_report(rep, os.path.join(DIAL_ROOT, "card"))) as f:
+        text = f.read()
+    runs = {name: _finish_child(children[name], os.path.join(
+        DIAL_ROOT, name), f"continual on the {name}")
+        for name in ("card_again", "cpu")}
+    with open(os.path.join(DIAL_ROOT, "card_again", "continual.json")) as f:
+        if f.read() != text:
+            raise AssertionError("continual: two card runs wrote different "
+                                 "reports")
+    with open(os.path.join(DIAL_ROOT, "cpu", "continual.json")) as f:
+        cpu = json.load(f)
+    rep = json.loads(text)
+    fr, on, cfr, con = (rep["frozen"], rep["online"], cpu["frozen"],
+                        cpu["online"])
+    if fr != cfr:
+        diff = _first_diff(fr["tput_mbs"], cfr["tput_mbs"])
+        raise AssertionError(f"continual: the frozen arm differs card vs "
+                             f"CPU (first differing interval {diff})")
+    if not on["refits"] or on["refits"][0] != con["refits"][0]:
+        raise AssertionError(f"continual: first refit card {on['refits'][:1]}"
+                             f" vs CPU {con['refits'][:1]}")
+    i = on["refits"][0]["interval"]
+    for k in ("tput_mbs", "theta_trace"):
+        if on[k][:i] != con[k][:i]:
+            raise AssertionError(f"continual: online {k} differs card vs CPU "
+                                 f"before the first refit (interval "
+                                 f"{_first_diff(on[k], con[k])})")
+    after = _first_diff(on["tput_mbs"], con["tput_mbs"])
+    again, on_cpu = runs["card_again"], runs["cpu"]
+    out = dict(
+        card_s=secs, card_again_s=again["seconds"], cpu_s=on_cpu["seconds"],
+        intervals=len(fr["tput_mbs"]), refits=rep["refits"],
+        refit_intervals=[r["interval"] for r in on["refits"]],
+        first_refit=i, online_first_difference=after,
+        post_fail_gain=rep["post_fail_gain"],
+        post_tail_gain=rep["post_tail_gain"],
+        frozen_post_fail_mbs=fr["post_fail_mbs"],
+        online_post_fail_mbs=on["post_fail_mbs"],
+        counts=counts, again_counts=again["counts"],
+        refit_rows=first.get("data"))
+    log(f"{card} | continual {CONT_SCENARIO} at run_comparison's defaults "
+        f"({len(fr['tput_mbs'])} intervals x 2 arms, refits of 40 x 5 "
+        f"trees): card {secs:.3f} s here and {again['seconds']:.3f} s in a "
+        f"child process beside it (reports byte-identical), the CPU "
+        f"{on_cpu['seconds']:.3f} s in another child (plain versions, one "
+        f"thread); frozen arm card == CPU bit for bit; online arm: "
+        f"{rep['refits']} refit(s) at intervals {out['refit_intervals']}, "
+        f"card == CPU through the first (interval {i}), "
+        + ("identical to the end" if after is None else
+           f"first differing interval {after} (card "
+           f"{on['tput_mbs'][after]!r} vs CPU {con['tput_mbs'][after]!r} "
+           "MB/s)")
+        + f"; post-failure gain {rep['post_fail_gain']:.4f}x (tail "
+        f"{rep['post_tail_gain']:.4f}x), frozen {fr['post_fail_mbs']:.3f} "
+        f"vs online {on['post_fail_mbs']:.3f} MB/s; launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    return out
+
+
+def dial_curriculum(proc, card: str) -> dict:
+    """``continual --hard-from`` on the cut sweep's report with the
+    ``--smoke`` settings, through the CLI in a child process on the
+    card: a well-formed report; when a replay refit the model, the
+    after races captured their loops anew (a miss for each bucket's
+    before and after race)."""
+    out = os.path.join(DIAL_ROOT, "curriculum")
+    run = _finish_child(proc, out, "continual --hard-from")
+    stats = run["loop_cache"]
+    with open(os.path.join(out, "curriculum.json")) as f:
+        rep = json.load(f)
+    if rep["schema"] != "dial-curriculum-v1" or not rep["n_losers"]:
+        raise AssertionError("curriculum: malformed report")
+    for c in rep["cases"]:
+        for side in ("before", "after"):
+            if not all(np.isfinite(c[side][k]) and c[side][k] >= 0 for k in (
+                    "dial_mbs", "best_static_mbs")):
+                raise AssertionError(f"curriculum: {c['name']} {side} "
+                                     "MB/s malformed")
+    if rep["n_refits"] and stats["misses"] < 2:
+        raise AssertionError("curriculum: the after races did not capture "
+                             "their loops anew")
+    o = rep["overall"]
+    log(f"{card} | continual --hard-from (cut sweep, --smoke, a child "
+        f"process): {rep['n_losers']} losers, {rep['n_replays']} replays, "
+        f"{rep['n_refits']} refits in {run['seconds']:.3f} s; loss rate "
+        f"{o['before_loss_rate']:.4f} -> {o['after_loss_rate']:.4f}; loop "
+        f"cache misses {stats['misses']}, hits {stats['hits']}, captures "
+        f"{stats['captures']} ({stats['capture_s']:.3f} s); launches "
+        + ", ".join(f"{k}={v}" for k, v in run["counts"].items())
+        + ("; replayed " + ", ".join(
+            f"{k}={v}" for k, v in stats["replayed_launches"].items())
+           if stats["replays"] else ""))
+    return dict(seconds=run["seconds"], counts=run["counts"], stats=stats,
+                n_losers=rep["n_losers"], n_replays=rep["n_replays"],
+                n_refits=rep["n_refits"], overall=o)
+
+
+def dial_overhead(model, dev, card: str) -> dict:
+    """``FleetAgent(measure_overhead=True)`` on phase 6's 8,192-interface
+    fleet for its 10 intervals: θ identical to phase 6's unmeasured host
+    loop; the per-interface Table III figures."""
+    from repro_torch.core.fleet import run_fleet
+    from repro_torch.pfs.state import READ, WRITE
+
+    sim = build_sim(CLIENTS, OSTS, dev)
+    fleet, secs, counts = counted(lambda: run_fleet(
+        sim, model, seconds=SECONDS, interval=INTERVAL, device=dev,
+        measure_overhead=True))
+    if trajectory(fleet) != MAIN_PATH["trajectory"]:
+        raise AssertionError("measure_overhead: θ differs from the "
+                             "unmeasured host loop's")
+    out = {name: fleet.timings[op].summary()
+           for op, name in ((READ, "read"), (WRITE, "write"))}
+    n = {name: len(fleet.timings[op].end_to_end_ms)
+         for op, name in ((READ, "read"), (WRITE, "write"))}
+    log(f"{card} | overhead (measure_overhead=True, each stage boundary "
+        f"synchronized): {sim.n_osc} interfaces, "
+        f"{int(round(SECONDS / INTERVAL))} intervals in {secs:.3f} s, θ "
+        "identical to phase 6's host loop; per interface, ms: " + "; ".join(
+            f"{name} snapshot {r['snapshot_ms']:.6f}, inference "
+            f"{r['inference_ms']:.6f}, end to end {r['end_to_end_ms']:.6f} "
+            f"({n[name]} decided ticks)" for name, r in out.items())
+        + "; launches " + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    return dict(seconds=secs, counts=counts, timings=out, ticks=n)
+
+
+def dial_mesh(model, seed: int, dev, card: str) -> dict:
+    """The wide batch (1,024 noisy_neighbor variants, 8,192 interfaces)
+    through ``run_batch(fused=True)`` on graphs, unsharded and over
+    ``fleet_mesh()`` (every visible card), alternated U M M U: the mesh
+    bit-equal to the unsharded run; ms per replayed interval of each."""
+    import torch
+
+    from repro_torch.distributed.sharding import fleet_mesh
+    from repro_torch.lab import batch as LB
+    from repro_torch.lab.scenarios import build, get_scenario, variants
+
+    built = [build(s) for s in variants(get_scenario("noisy_neighbor"),
+                                        WIDE_VARIANTS, seed=seed)]
+    mesh = fleet_mesh()
+    runs = []
+    for name, m in (("unsharded", None), ("mesh", mesh),
+                    ("mesh again", mesh), ("unsharded again", None)):
+        batch = LB.stack_scenarios(built, device=dev)
+        LB.reset_loop_cache_stats()
+        res, secs, counts = counted(lambda: LB.run_batch(
+            batch, model, seconds=WIDE_SECONDS, interval=LAB_INTERVAL,
+            fused=True, mesh=m))
+        stats = LB.loop_cache_stats()
+        runs.append(dict(name=name, batch=batch, result=res, seconds=secs,
+                         counts=counts, stats=stats,
+                         ms=(stats["replay_device_ms"] / stats["replays"]
+                             if stats["replays"] else None)))
+    base = runs[0]
+    for r in runs[1:]:
+        for key, v in base["result"].trace.items():
+            if not torch.equal(v, r["result"].trace[key]):
+                raise AssertionError(f"mesh ({r['name']}): record {key} "
+                                     "differs from the unsharded run's")
+        for f in dataclasses.fields(base["batch"].state):
+            a = getattr(base["batch"].state, f.name)
+            b = getattr(r["batch"].state, f.name)
+            if not (torch.equal(a, b) if torch.is_tensor(a) else a == b):
+                raise AssertionError(f"mesh ({r['name']}): {f.name} differs "
+                                     "from the unsharded run's")
+    log(f"{card} | mesh: {len(built)} variants = {base['batch'].fleet.n_osc} "
+        f"interfaces over fleet_mesh() = {len(mesh)} device(s), "
+        f"{int(round(WIDE_SECONDS / LAB_INTERVAL))} intervals on graphs, bit-"
+        "equal to the unsharded run; ms per replayed interval (CUDA "
+        "events), wall s, captures: " + "; ".join(
+            f"{r['name']} " + ("not measured" if r["ms"] is None
+                               else f"{r['ms']:.2f} ms")
+            + f", {r['seconds']:.3f} s, "
+            f"{r['stats']['captures']}" for r in runs))
+    for r in runs:
+        del r["batch"], r["result"]
+    return dict(devices=len(mesh), runs=runs)
+
+
+def dial_kernels(model, refit_rows, rng) -> tuple:
+    """The three kernels at the continual path's shapes, against their
+    plain versions: ``segment_sum`` on the 4 x 4 scenario's maps, the
+    paired forest on its 16 interfaces x 24 rows, ``tree_histogram`` on
+    the first refit's buffer rows."""
+    import torch
+
+    from repro_torch.kernels.gbdt_forest.ops import pair_forests
+    from repro_torch.lab.batch import stack_scenarios
+    from repro_torch.lab.scenarios import build, get_scenario
+
+    dev = model.device
+    b = stack_scenarios([build(get_scenario(CONT_SCENARIO))], device=dev)
+    tag = CONT_SCENARIO
+    seg = check_segment_sum({f"{tag} osc_ost x2": (b.fleet.ost_map, 2),
+                             f"{tag} osc_client": (b.fleet.client_map, 1),
+                             f"{tag} entry_row": (b.table.row_map, 1),
+                             f"{tag} entry_osc x8": (b.table.osc_map, 8)},
+                            rng)
+    feature, threshold, leaf, base, _, n_features = pair_forests(
+        model.read_forest, model.write_forest)
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    n_osc = b.fleet.n_osc
+    x = to((rng.standard_normal((n_osc * 24, n_features)) * 10.0
+            ** rng.uniform(-1, 3, n_features)).astype(np.float32))
+    op = to(np.repeat(rng.integers(0, 2, n_osc), 24).astype(np.int32))
+    forest = check_forest("paired_forest_margin",
+                          "src/repro/kernels/gbdt_forest/kernel.py:96", x, op,
+                          *map(to, (feature, threshold, leaf, base)),
+                          label=f" ({tag} rows)")
+    hist = check_tree_histogram(refit_rows, rng, dev)
+    return seg, forest, hist
+
+
+def dial_phase(model, seed: int, dev, kernels: list, card: str,
+               cut_report: str) -> None:
+    """Phase 11, the rest of DIAL's side, on the model phase 3 trained:
+    continual refit (frozen vs online) on the card here and in a child
+    process, and on the CPU in another; the hard-case curriculum over
+    phase 10's cut sweep in a third (the three children run beside the
+    first comparison); then Table III's overhead timing on phase 6's
+    fleet, the wide batch over a fleet mesh, and the three kernels at
+    the continual path's shapes.  Launches go into rows 1, 2 and 4."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 11)
+    by_name = {k["name"]: k for k in kernels}
+    shutil.rmtree(DIAL_ROOT, ignore_errors=True)
+    os.makedirs(DIAL_ROOT)
+    prefix = os.path.join(DIAL_ROOT, "model")
+    model.save(prefix)
+    children = {
+        "card_again": _child("card", prefix,
+                             os.path.join(DIAL_ROOT, "card_again"),
+                             CONT_SCENARIO),
+        "cpu": _child("cpu", prefix, os.path.join(DIAL_ROOT, "cpu"),
+                      CONT_SCENARIO),
+        "curriculum": _child("curriculum", prefix,
+                             os.path.join(DIAL_ROOT, "curriculum"),
+                             cut_report)}
+    try:
+        comparison = dial_comparison(model, dev, card, children)
+        curriculum = dial_curriculum(children["curriculum"], card)
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    log(f"{card} | phase 11: the three child processes done at "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    overhead = dial_overhead(model, dev, card)
+    torch.cuda.empty_cache()
+    mesh = dial_mesh(model, seed, dev, card)
+    torch.cuda.empty_cache()
+    if comparison["refit_rows"] is None:
+        raise AssertionError("continual: no refit's rows to check")
+    seg, forest, hist = dial_kernels(model, comparison.pop("refit_rows"), rng)
+    by_name["segment_sum"]["dial_shapes"] = seg["cases"]
+    by_name["paired_forest_margin"]["dial_shapes"] = [
+        {k: forest[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                "bound_by", "max_abs_err", "shape")}]
+    by_name["tree_histogram"]["dial_shapes"] = {
+        k: hist[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "bound_by", "max_abs_err", "shape")}
+
+    # a curriculum whose replays never refit launches no tree_histogram
+    cur_kernels = ("segment_sum", "paired_forest_margin") + (
+        ("tree_histogram",) if curriculum["n_refits"] else ())
+    for kname in ("segment_sum", "paired_forest_margin", "tree_histogram"):
+        add_path(by_name[kname], "continual card",
+                 comparison["counts"].get(kname, 0))
+        add_path(by_name[kname], "continual card, child process",
+                 comparison["again_counts"].get(kname, 0))
+    for kname in cur_kernels:
+        add_path(by_name[kname], "continual --hard-from (counted + "
+                 "replayed)", curriculum["counts"].get(kname, 0)
+                 + curriculum["stats"]["replayed_launches"].get(kname, 0))
+    for kname in ("segment_sum", "paired_forest_margin"):
+        add_path(by_name[kname], "measure_overhead fleet",
+                 overhead["counts"].get(kname, 0))
+        for r in mesh["runs"]:
+            if r["name"].startswith("mesh"):
+                add_path(by_name[kname], f"{r['name']} (counted + replayed)",
+                         r["counts"].get(kname, 0)
+                         + r["stats"]["replayed_launches"].get(kname, 0))
+    by_name["paired_forest_margin"]["dial"] = dict(
+        comparison={k: v for k, v in comparison.items()
+                    if k not in ("counts", "again_counts")},
+        curriculum={k: v for k, v in curriculum.items()
+                    if k not in ("counts", "stats")},
+        overhead={k: v for k, v in overhead.items() if k != "counts"},
+        mesh=dict(devices=mesh["devices"], runs=[
+            {k: r[k] for k in ("name", "seconds", "ms")}
+            for r in mesh["runs"]]),
+        phase_s=time.perf_counter() - t_phase)
+    log(f"{card} | phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2376,7 +2801,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lab_phase(model, args.seed, torch.device("cuda"), kernels, smi)
     torch.cuda.empty_cache()
-    obs_phase(model, args.seed, torch.device("cuda"), kernels, smi)
+    cut_report = obs_phase(model, args.seed, torch.device("cuda"), kernels,
+                           smi)
+    torch.cuda.empty_cache()
+    dial_phase(model, args.seed, torch.device("cuda"), kernels, smi,
+               cut_report)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -20,6 +20,11 @@ graph replay on the card), the records read once at its end, then
 adopted by the agent (:meth:`FleetAgent.ingest_fused`) so that host
 ticks can continue where it stopped.
 
+``measure_overhead=True`` records paper Table III's per-interface wall
+times (:class:`~repro_torch.core.agent.AgentTimings`): each stage
+boundary of a measured tick synchronizes the device first, an unmeasured
+tick makes no such sync, and decisions are the same either way.
+
 Decentralization is kept: every row is built from that interface's own
 counters, and no decision reads another interface's state.
 """
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.agent import AgentTimings, stage_clock
 from repro_torch.core.config_space import SPACE, ConfigSpace
 from repro_torch.core.metrics import (FleetSnapshot, fleet_feature_matrix,
                                       snapshot_all)
@@ -135,7 +141,8 @@ class FleetAgent:
     interval.  ``device=None`` means the CUDA card; the port's sim and
     the model must live on the same device.  ``tracer`` (a
     :class:`~repro_torch.obs.host.HostTracer`) records every interval's
-    decision provenance, gated or not, as device tensors."""
+    decision provenance, gated or not, as device tensors.
+    ``measure_overhead`` fills ``timings`` (see the module note)."""
 
     def __init__(
         self,
@@ -146,6 +153,7 @@ class FleetAgent:
         k: int = 1,
         min_volume_bytes: float = 256 * 1024,
         warmup_intervals: int = 2,
+        measure_overhead: bool = False,
         device=None,
         tracer=None,
     ):
@@ -166,6 +174,8 @@ class FleetAgent:
         self.min_volume = min_volume_bytes
         self.warmup = warmup_intervals
         self._ticks = 0
+        self.measure_overhead = measure_overhead
+        self.timings = {READ: AgentTimings(), WRITE: AgentTimings()}
         self.oscs = port.osc_ids().to(self.device)
         self.n = self.oscs.shape[0]
         self._theta_feats = torch.as_tensor(space.as_features(),
@@ -180,7 +190,9 @@ class FleetAgent:
 
     def tick(self) -> FleetTickResult:
         """One tuning round across every interface."""
+        measure = self.measure_overhead
         self._ticks += 1
+        t0 = stage_clock(self.device, measure)
         cur = self.port.probe_all()
         snap = snapshot_all(self._prev, cur)
         self._prev = cur
@@ -188,6 +200,7 @@ class FleetAgent:
         # the applied θ comes from the probe itself: knobs may have
         # changed out-of-band since the last write
         current = torch.stack([cur.window_pages, cur.rpcs_in_flight], dim=1)
+        t1 = stage_clock(self.device, measure)
         vol_r, vol_w = snap.read_volume, snap.write_volume
         ops = torch.where(vol_r >= vol_w, READ, WRITE)     # op model (SIII-C)
         active = torch.maximum(vol_r, vol_w) >= self.min_volume
@@ -228,6 +241,7 @@ class FleetAgent:
         probs = torch.empty((rows.shape[0], m), dtype=F64, device=self.device)
         probs[pos_read] = p_read.reshape(-1, m).to(F64)
         probs[pos_write] = p_write.reshape(-1, m).to(F64)
+        t2 = stage_clock(self.device, measure)
 
         dec = conditional_score_greedy_batch(
             probs, ops[rows], current[rows], self.space, self.tuner_params)
@@ -235,13 +249,31 @@ class FleetAgent:
         # the same as writing the changed ones, without a host sync
         self.port.set_knobs_many(self.oscs[rows], dec.theta[:, 0],
                                  dec.theta[:, 1])
+        t3 = stage_clock(self.device, measure)
         if self.tracer is not None:
             self._trace_decided(cur.t, rows, dec, ops, vol_r, vol_w, active,
                                 steady, ratio, current)
         result = FleetTickResult(oscs=self.oscs[rows].cpu(),
                                  ops=ops[rows].cpu(), decisions=dec.to("cpu"))
+        if measure:
+            self._record_timings(rows_h.size, is_read_h, t0, t1, t2, t3)
         self.decisions.append(result)
         return result
+
+    def _record_timings(self, n_rows: int, is_read, t0, t1, t2, t3) -> None:
+        """Per-interface wall times of one decided tick (the reference's
+        fleet Table III figures): the probe and snapshot over every
+        interface, inference and the whole tick over the decided
+        ones."""
+        snap_ms = (t1 - t0) / max(self.n, 1) * 1e3
+        inf_ms = (t2 - t1) / max(n_rows, 1) * 1e3
+        e2e_ms = (t3 - t0) / max(n_rows, 1) * 1e3
+        for op, mask in ((READ, is_read), (WRITE, ~is_read)):
+            if mask.any():
+                tm = self.timings[op]
+                tm.snapshot_ms.append(snap_ms)
+                tm.inference_ms.append(inf_ms)
+                tm.end_to_end_ms.append(e2e_ms)
 
     def _trace_gated(self, t, ops, vol_r, vol_w, active, warm, steady,
                      ratio, current) -> None:
@@ -309,7 +341,8 @@ class FleetAgent:
 def run_fleet(sim, model: DIALModel, oscs=None, seconds: float = 10.0,
               interval: float = 0.5, tuner_params: TunerParams | None = None,
               backend: str = "torch", device=None,
-              graph: bool | None = None, trace=None) -> FleetAgent:
+              graph: bool | None = None, trace=None,
+              measure_overhead: bool = False, mesh=None) -> FleetAgent:
     """Drive the simulator with one fleet agent over ``oscs`` (default
     all interfaces).
 
@@ -325,8 +358,19 @@ def run_fleet(sim, model: DIALModel, oscs=None, seconds: float = 10.0,
       :meth:`~repro_torch.pfs.loop_torch.FusedLoop.advance`'s: ``None``
       replays each interval as a CUDA graph on the card); the agent then
       ingests the run.  The loop is kept as ``fleet.loop``.
+    * ``backend="torch-sharded"``, the counterpart of ``"jax-sharded"``:
+      the sim lifted to a one-element batch, padded to the devices of
+      ``mesh`` (default :func:`~repro_torch.distributed.sharding.
+      fleet_mesh`, every visible card) and run through
+      :func:`~repro_torch.lab.batch.run_sharded`, a fused loop per
+      device.  One sim's interfaces share OSTs, so it lands on one
+      device and the others run phantoms; the backend pins the sharded
+      path end to end (a real scale-out splits many scenarios,
+      ``run_batch(fused=True, mesh=...)``).
 
-    Decisions and knob trajectories are the same on both.
+    Decisions and knob trajectories are the same on all three.
+    ``measure_overhead`` (``"torch"`` only) fills ``fleet.timings``: a
+    fused run has no per-stage host boundary to time.
 
     ``trace`` (a :class:`~repro_torch.obs.schema.TraceConfig`) opts the
     run into telemetry: the agent carries a normalized
@@ -336,17 +380,26 @@ def run_fleet(sim, model: DIALModel, oscs=None, seconds: float = 10.0,
     its timeline sampled in the engine's tick loop on the device.
     Tracing never changes a decision.
     """
-    if backend not in ("torch", "torch-fused"):
+    if backend not in ("torch", "torch-fused", "torch-sharded"):
         raise ValueError(f"unknown engine backend {backend!r}")
-    if graph is not None and backend != "torch-fused":
-        raise ValueError("graph= applies to backend='torch-fused' only")
+    if graph is not None and backend == "torch":
+        raise ValueError("graph= applies to the fused backends only")
+    if mesh is not None and backend != "torch-sharded":
+        raise ValueError("mesh only applies to backend='torch-sharded'")
+    if measure_overhead and backend != "torch":
+        raise ValueError(
+            "measure_overhead requires per-interval host timing; a fused "
+            "run has no per-stage boundary to time -- use backend='torch' "
+            "(benchmarks/torch_table3_overhead.py times the fused path "
+            "differentially)")
     tracer = None
     if trace is not None and backend == "torch":
         from repro_torch.obs.host import HostTracer
 
         tracer = HostTracer(trace, sim.params, sim.topo)
     fleet = FleetAgent(SimFleetPort(sim, oscs), model,
-                       tuner_params=tuner_params, device=device,
+                       tuner_params=tuner_params,
+                       measure_overhead=measure_overhead, device=device,
                        tracer=tracer)
     fleet.loop = None
     fleet.trace = None
@@ -362,6 +415,23 @@ def run_fleet(sim, model: DIALModel, oscs=None, seconds: float = 10.0,
         if tracer is not None:
             fleet.trace = tracer.run_trace(fleet.oscs, interval,
                                            sim.params.tick)
+    elif backend == "torch-sharded":
+        from repro_torch.distributed.sharding import fleet_mesh
+        from repro_torch.lab.batch import run_sharded
+        from repro_torch.obs.schema import RunTrace
+
+        tune_mask = np.zeros((1, sim.n_osc), dtype=bool)
+        tune_mask[0, fleet.oscs.cpu().numpy()] = True
+        result = run_sharded(
+            sim.params, sim.topo, sim.topo, (table,), sim.state, wstate,
+            None, tune_mask, None, model, steps_per_interval, n_intervals,
+            fleet.tuner_params, trace, graph,
+            fleet_mesh() if mesh is None else mesh)
+        sim.state, wstate = result.state, result.wstate
+        fleet.ingest_fused(result)
+        if trace is not None:
+            fleet.trace = RunTrace.from_fused(result, trace,
+                                              sim.params.tick)
     else:
         from repro_torch.pfs.loop_torch import FusedLoop
 

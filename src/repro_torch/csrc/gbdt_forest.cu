@@ -162,56 +162,73 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-// The device's shared-memory opt-in limit and SM count, queried once.
+// The current device's shared-memory opt-in limit and SM count, queried
+// once a device: a process may launch on several (a fleet mesh), and the
+// opt-in and occupancy below are per device too.
+constexpr int kMaxDevices = 64;
+
 struct Device {
   cudaError_t err = cudaSuccess;
-  int smem_limit = 0, sms = 0;
+  int id = 0, smem_limit = 0, sms = 0;
 };
 
 const Device& device() {
-  static const Device d = [] {
+  static Device cache[kMaxDevices];
+  static bool ready[kMaxDevices] = {};
+  static Device failed;
+  int dev = 0;
+  failed.err = cudaGetDevice(&dev);
+  if (failed.err == cudaSuccess && (dev < 0 || dev >= kMaxDevices)) {
+    failed.err = cudaErrorInvalidDevice;
+  }
+  if (failed.err != cudaSuccess) return failed;
+  if (!ready[dev]) {
     Device d;
-    int dev = 0;
-    d.err = cudaGetDevice(&dev);
-    if (d.err == cudaSuccess) {
-      d.err = cudaDeviceGetAttribute(
-          &d.smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    }
+    d.id = dev;
+    d.err = cudaDeviceGetAttribute(
+        &d.smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (d.err == cudaSuccess) {
       d.err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount,
                                      dev);
     }
-    return d;
-  }();
-  return d;
+    cache[dev] = d;
+    ready[dev] = true;
+  }
+  return cache[dev];
 }
 
-// The kernel is allowed the device's whole opt-in once, and its blocks an
-// SM are asked again only when (rows, bytes) change: both by the first
-// (warm-up) launch of a shape, outside any CUDA-graph capture, and reused
-// by the launches captured after it.
+// The kernel is allowed the device's whole opt-in once a device, and its
+// blocks an SM are asked again only when (rows, bytes) change: both by the
+// first (warm-up) launch of a shape, outside any CUDA-graph capture, and
+// reused by the launches captured after it.
 template <int kDepth>
 int launch(const float* x, const int* op, const int* feature,
            const float* threshold, const float* leaf, const float* base,
            float* out, int n, int n_features, int n_forests, int n_trees,
            int depth, int rows, int smem, const Device& d,
            cudaStream_t stream) {
-  static const cudaError_t set = cudaFuncSetAttribute(
-      forest_margin_kernel<kDepth>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem_limit);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  static int last_rows = 0, last_smem = -1, per_sm = 0;
-  if (rows != last_rows || smem != last_smem) {
+  static bool set[kMaxDevices] = {};
+  if (!set[d.id]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        forest_margin_kernel<kDepth>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, d.smem_limit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set[d.id] = true;
+  }
+  static int last_rows[kMaxDevices] = {}, last_smem[kMaxDevices] = {},
+             per_sm[kMaxDevices] = {};
+  if (rows != last_rows[d.id] || smem != last_smem[d.id]) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, forest_margin_kernel<kDepth>, rows,
+        &per_sm[d.id], forest_margin_kernel<kDepth>, rows,
         static_cast<size_t>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    last_rows = rows;
-    last_smem = smem;
+    last_rows[d.id] = rows;
+    last_smem[d.id] = smem;
   }
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (per_sm[d.id] < 1) return static_cast<int>(cudaErrorInvalidValue);
   // persistent blocks, but none with fewer than 32 rows
-  const int blocks = std::max(1, std::min(d.sms * per_sm, (n + 31) / 32));
+  const int blocks =
+      std::max(1, std::min(d.sms * per_sm[d.id], (n + 31) / 32));
   const int vec = n_features % 4 == 0 &&
                   (reinterpret_cast<size_t>(x) & 15) == 0;
   forest_margin_kernel<kDepth>

@@ -15,6 +15,9 @@ The port of the reference's ``repro/lab`` batch layer:
                    versioned model artifacts;
     evaluate.py    every scenario under tuned vs default vs best-static
                    policies, as a JSON + markdown report;
+    continual.py   a drifting scenario with online refits (frozen vs
+                   online), and the hard-case curriculum over a fuzz
+                   report's triaged losers;
     fuzz.py        seeded scenario generation, sweeps of DIAL against a
                    static-θ grid, auto-triaged loss reports;
     trace.py       one scenario replayed through the traced fused loop,
@@ -22,14 +25,17 @@ The port of the reference's ``repro/lab`` batch layer:
     diagnose.py    counterfactual diagnosis of a scenario or of a fuzz
                    report's losers (:mod:`repro_torch.obs.diagnose`).
 
-CLI: ``python -m repro_torch.lab {list,campaign,evaluate,fuzz,trace,
-diagnose}`` (``--smoke`` for the CI-sized runs, ``--device cpu`` for the
+CLI: ``python -m repro_torch.lab {list,campaign,evaluate,continual,fuzz,
+trace,diagnose}`` (``--smoke`` for the CI-sized runs, ``--device cpu`` for the
 plain versions).
 """
 
 from repro_torch.lab.batch import (BatchEngine, BatchPort, ScenarioBatch,
                                    bucket_scenarios, run_batch,
                                    stack_scenarios)
+from repro_torch.lab.continual import (ContinualResult, run_comparison,
+                                       run_continual,
+                                       run_hard_case_curriculum)
 from repro_torch.lab.scenarios import (SCENARIOS, BuiltScenario,
                                        DisturbanceEvent, ScenarioSpec, build,
                                        get_scenario, make_schedule,
@@ -39,5 +45,6 @@ __all__ = [
     "ScenarioSpec", "DisturbanceEvent", "BuiltScenario", "SCENARIOS",
     "build", "get_scenario", "scenario_names", "variants", "make_schedule",
     "ScenarioBatch", "BatchEngine", "BatchPort", "stack_scenarios",
-    "bucket_scenarios", "run_batch",
+    "bucket_scenarios", "run_batch", "ContinualResult", "run_continual",
+    "run_comparison", "run_hard_case_curriculum",
 ]

@@ -34,6 +34,7 @@ means the CUDA card) once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -41,10 +42,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.fleet import FleetAgent
+from repro_torch.core.gbdt import DenseForest
+from repro_torch.core.model import DIALModel
 from repro_torch.core.tuner import TunerParams
 from repro_torch.lab.scenarios import (HOST, BuiltScenario, make_schedule)
 from repro_torch.pfs.engine_torch import FusedEngine
-from repro_torch.pfs.loop_torch import FusedLoop, FusedLoopResult
+from repro_torch.distributed.sharding import shard_elements
+from repro_torch.pfs.loop_torch import (FusedLoop, FusedLoopResult,
+                                        Intervention, decisions_from_trace)
 from repro_torch.pfs.state import (Disturbance, SimParams, SimState, SimTopo,
                                    init_state)
 from repro_torch.pfs.stats import probe_all
@@ -453,12 +458,16 @@ def run_batch(batch: ScenarioBatch, model=None, seconds: float = 10.0,
     timeline sampled in the engine's tick loop; an untuned host batch
     has no agent and is refused.
 
-    ``mesh=`` is not ported (ROADMAP Queue 1 #11).
+    ``mesh`` (fused only; a tuple of devices,
+    :func:`repro_torch.distributed.sharding.fleet_mesh`) splits the
+    batch over the devices: padded to a multiple of the mesh size by
+    repeating element 0 (tune mask off, so phantoms never decide), cut
+    into contiguous equal shards, each run as a fleet of its own on its
+    device through that device's cached loop.  Every shard's intervals
+    are launched before any result is read back; the state, records and
+    decisions come back on the batch's device in element order, bit for
+    bit the unsharded run's.
     """
-    if mesh is not None:
-        raise NotImplementedError("run_batch(mesh=...): the multi-device "
-                                  "fleet is not ported (ROADMAP Queue 1 "
-                                  "#11)")
     steps = max(int(round(interval / batch.params.tick)), 1)
     n_intervals = int(round(seconds / interval))
 
@@ -471,10 +480,13 @@ def run_batch(batch: ScenarioBatch, model=None, seconds: float = 10.0,
                              "path; the fused path builds its own loops")
         return _run_batch_fused(batch, model, steps, n_intervals,
                                 tuner_params, tune_cols, intervene, graph,
-                                trace)
+                                trace, mesh)
     if intervene is not None:
         raise ValueError("intervene= rides the fused batch path -- pass "
                          "fused=True")
+    if mesh is not None:
+        raise ValueError("mesh sharding rides the fused batch path -- "
+                         "pass fused=True with mesh")
     if graph is not None:
         raise ValueError("graph= applies to fused=True only")
     if trace is not None and model is None:
@@ -588,7 +600,7 @@ def _cached_loop(params, topo: SimTopo, steps: int, model,
 
 def _run_batch_fused(batch: ScenarioBatch, model, steps: int,
                      n_intervals: int, tuner_params, tune_cols, intervene,
-                     graph, trace=None) -> FusedLoopResult:
+                     graph, trace=None, mesh=None) -> FusedLoopResult:
     """The batched run on the device: one tuned loop over the whole
     fleet.  Elements with no tuned interface (the static-θ arms of an
     evaluation) ride it with their tune mask off, so they never decide;
@@ -608,12 +620,19 @@ def _run_batch_fused(batch: ScenarioBatch, model, steps: int,
         pin = (pin.cpu().numpy() if torch.is_tensor(pin)
                else np.asarray(pin, dtype=bool)).reshape(b, n)
         intervene = intervene._replace(pin_mask=pin & tuned[:, None])
-    loop = _cached_loop(batch.params, batch.fleet, steps, model,
-                        tuner_params, trace)
-    result = loop.run(batch.table, batch.state, batch.wstate, n_intervals,
-                      schedule=batch.schedule(0, n_intervals * steps),
-                      tune_mask=mask, intervene=intervene, graph=graph)
-    _account(loop.last_run)
+    schedule = batch.schedule(0, n_intervals * steps)
+    if mesh is not None:
+        result = run_sharded(
+            batch.params, batch.topo, batch.fleet, batch.tables,
+            batch.state, batch.wstate, schedule, mask, intervene, model,
+            steps, n_intervals, tuner_params, trace, graph, mesh)
+    else:
+        loop = _cached_loop(batch.params, batch.fleet, steps, model,
+                            tuner_params, trace)
+        result = loop.run(batch.table, batch.state, batch.wstate,
+                          n_intervals, schedule=schedule, tune_mask=mask,
+                          intervene=intervene, graph=graph)
+        _account(loop.last_run)
     batch.state, batch.wstate = result.state, result.wstate
     if trace is not None and not tuned.all():
         _placeholder_untuned(result.trace, np.repeat(~tuned, n))
@@ -637,3 +656,169 @@ def _placeholder_untuned(trace: dict, cols: np.ndarray) -> None:
             continue
         v[:, cols] = 0
     trace["theta"][:, cols] = trace["cur_theta"][:, cols]
+
+
+# ---------------------------------------------------------------------- #
+# the sharded fused path: one fleet per device of a mesh
+# ---------------------------------------------------------------------- #
+# the model's forests on each mesh device, copied once per model version
+# (the entry pins the model, whose id is in the key)
+_REPLICAS: dict = {}
+
+
+def model_on(model, device):
+    """``model`` with its forests on ``device``: the model itself where
+    it already lives there, else a copy made once per
+    ``model._version`` (a refit makes a new one)."""
+    device = torch.device(device)
+    if model.device == device:
+        return model
+    key = (id(model), model._version, str(device))
+    if key not in _REPLICAS:
+        if len(_REPLICAS) >= 32:                      # FIFO, as the loops
+            _REPLICAS.pop(next(iter(_REPLICAS)))
+        moved = [DenseForest(f.feature.to(device), f.threshold.to(device),
+                             f.leaf.to(device), f.base_score, f.depth,
+                             f.n_features)
+                 for f in (model.read_forest, model.write_forest)]
+        _REPLICAS[key] = (DIALModel(*moved, space=model.space, k=model.k),
+                          model)
+    return _REPLICAS[key][0]
+
+
+def _take(x, elems, n_elems: int):
+    """Elements ``elems`` of a fleet tensor or array whose last axis is
+    element-major over ``n_elems`` elements."""
+    lead = tuple(x.shape[:-1])
+    if torch.is_tensor(x):
+        split = x.reshape(lead + (n_elems, -1))
+        out = split.index_select(len(lead), torch.as_tensor(
+            elems, device=x.device))
+    else:
+        out = np.take(np.asarray(x).reshape(lead + (n_elems, -1)), elems,
+                      axis=len(lead))
+    return out.reshape(lead + (-1,))
+
+
+def _on(device):
+    """The shard's device as the current one: the kernels launch on the
+    current device's streams and keep their launch state per device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _head(x, n_real: int, n_elems: int, axis: int):
+    """The first ``n_real`` of ``n_elems`` element blocks of ``axis``."""
+    width = x.shape[axis] // n_elems
+    return x.narrow(axis, 0, n_real * width)
+
+
+def run_sharded(params: SimParams, topo: SimTopo, fleet: SimTopo, tables,
+                state: SimState, wstate: WorkloadState, schedule, mask,
+                intervene, model, steps: int, n_intervals: int,
+                tuner_params, trace, graph, mesh) -> FusedLoopResult:
+    """A block-diagonal fleet of ``len(tables)`` elements, split over
+    the devices of ``mesh``.
+
+    ``topo`` is one element's topology, ``fleet`` the whole fleet's (its
+    validity masks), ``tables`` each element's table; ``state`` /
+    ``wstate`` / ``schedule`` (a numpy :class:`Disturbance` or
+    ``None``) are the fleet's, element-major along their last axis;
+    ``mask`` is the ``(B, n)`` tune mask and ``intervene`` ``None`` or a
+    ``(B, n)``-leading :class:`~repro_torch.pfs.loop_torch.Intervention`.
+    Shard s runs elements ``shard_elements(B, len(mesh))[s]``, phantoms
+    with their tune mask off and the neutral intervention.  Every
+    shard's intervals are launched before any shard is read back.  The
+    result's state, ``hist`` and records are on ``fleet``'s device, in
+    element order, phantoms dropped.
+    """
+    b, n = len(tables), topo.n_osc
+    mesh = tuple(torch.device(d) for d in mesh)
+    shards = shard_elements(b, len(mesh))
+    per = len(shards[0])
+    ost_valid = fleet.ost_valid_mask().cpu().numpy()
+    client_valid = fleet.client_valid_mask().cpu().numpy()
+    mask = np.asarray(mask, dtype=bool).reshape(b, n)
+    if intervene is not None:
+        intervene = Intervention(*(
+            (a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a))
+            .reshape((b, n) + tail)
+            for a, tail in zip(intervene, ((), (2,), (), ()))))
+    out_dev = fleet.device
+
+    runs = []                   # (loop, carry, records, run, n_real)
+    for s, (dev, elems) in enumerate(zip(mesh, shards)):
+        n_real = max(0, min(per, b - s * per))
+        real = np.arange(per) < n_real
+        sub = _fleet_topo(topo, per, _take(ost_valid, elems, b),
+                          _take(client_valid, elems, b), dev)
+        table = WorkloadTable.block([tables[e] for e in elems],
+                                    topo.n_clients, dev)
+        st = SimState(**{
+            f: (getattr(state, f) if f in _CLOCK
+                else _take(getattr(state, f), elems, b).to(dev))
+            for f in _STATE_FIELDS})
+        ws = WorkloadState(_take(wstate.issued, elems, b).to(dev),
+                           _take(wstate.done_base, elems, b).to(dev))
+        sched = (None if schedule is None else Disturbance(*(
+            _take(getattr(schedule, f.name), elems, b)
+            for f in dataclasses.fields(Disturbance))))
+        iv = None
+        if intervene is not None:
+            iv = Intervention(*(np.where(
+                real.reshape((per,) + (1,) * (a.ndim - 1)), a[elems],
+                np.zeros_like(a[elems])) for a in intervene))
+        loop = _cached_loop(params, sub, steps, model_on(model, dev),
+                            tuner_params, trace)
+        with _on(dev):
+            inputs = loop.prepare(st, ws, n_intervals, sched,
+                                  mask[elems] & real[:, None], iv)
+            carry, records = loop.advance(table, inputs, n_intervals, graph)
+        runs.append((dev, loop, carry, records, loop.last_run, n_real))
+
+    results = []
+    for dev, loop, carry, records, run, n_real in runs:
+        with _on(dev):
+            results.append((loop.finish(carry, records, n_intervals, run),
+                            n_real))
+        _account(run)
+    live = [(r, k) for r, k in results if k]
+
+    def join(get, axis, dev=out_dev):
+        return torch.cat([_head(get(r), k, per, axis).to(dev)
+                          for r, k in live], dim=axis)
+
+    r0 = results[0][0]
+    state_out = SimState(**{
+        f: (getattr(r0.state, f) if f in _CLOCK
+            else join(lambda r: getattr(r.state, f), -1))
+        for f in _STATE_FIELDS})
+    wstate_out = WorkloadState(join(lambda r: r.wstate.issued, -1),
+                               join(lambda r: r.wstate.done_base, -1))
+    hist = None
+    if r0.hist is not None:
+        hist = tuple(join(lambda r: r.hist[i], 1)
+                     for i in range(len(r0.hist)))
+    trace_out = None
+    if r0.trace is not None:
+        # host tensors, as an unsharded run's records; the element axis
+        # is the interfaces' (1) or, on the timeline, the OSTs' or
+        # clients' (last); per-interval scalars are every shard's
+        trace_out = {}
+        for key, v in r0.trace.items():
+            if key == "timeline":
+                trace_out[key] = {
+                    tk: (tv if tv.dim() < 3 else
+                         join(lambda r: r.trace[key][tk], -1, "cpu"))
+                    for tk, tv in v.items()}
+            else:
+                trace_out[key] = (v if v.dim() < 2 else
+                                  join(lambda r: r.trace[key], 1, "cpu"))
+    return FusedLoopResult(
+        state=state_out, wstate=wstate_out, trace=trace_out,
+        decisions=(decisions_from_trace(trace_out)
+                   if trace_out is not None and "decided" in trace_out
+                   else []),
+        hist=hist, interval_seconds=r0.interval_seconds,
+        n_run=n_intervals)

@@ -78,9 +78,13 @@ def main(args) -> int:
     cfg = DiagnoseConfig(seconds=args.seconds, interval=args.interval,
                          loss_threshold=args.threshold,
                          max_evidence=args.max_evidence)
+    from repro_torch.lab.__main__ import _make_mesh
+
     # a mixed loser set (--all) replays ragged: one traced run per
     # padded shape bucket instead of one per loser
-    diags = diagnose_many(pairs, model, cfg, alt_model=alt_model,
+    diags = diagnose_many(pairs, model, cfg,
+                          mesh=_make_mesh(getattr(args, "mesh", None)),
+                          alt_model=alt_model,
                           alt_model_name=args.alt_model,
                           ragged=not getattr(args, "no_ragged", False),
                           device=dev)

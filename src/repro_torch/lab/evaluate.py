@@ -76,7 +76,8 @@ def evaluate_scenario(spec: ScenarioSpec, model: DIALModel,
 
     ``fused=True`` (default) runs the comparison on the device, each
     interval one CUDA-graph replay on the card (``graph=False``: eager);
-    ``fused=False`` keeps the per-interval host loop.
+    ``fused=False`` keeps the per-interval host loop.  ``mesh`` splits
+    the |Θ|+1 arms over its devices (fused only; ``run_batch``'s).
     """
     dev = _checked_device(model, device)
     configs = SPACE.configs()
@@ -140,7 +141,7 @@ def catalog_arms(specs) -> tuple:
 
 def _evaluate_catalog_ragged(specs, model: DIALModel, seconds: float,
                              interval: float, fused: bool,
-                             graph: bool | None, device,
+                             graph: bool | None, device, mesh=None,
                              tuner_params: TunerParams | None = None):
     """The whole heterogeneous catalog in one ``run_batch`` per bucket.
 
@@ -166,7 +167,8 @@ def _evaluate_catalog_ragged(specs, model: DIALModel, seconds: float,
             [e * n + batch.element_cols(e) for e in dial_elems])
         res = run_batch(batch, model=model, seconds=seconds,
                         interval=interval, tuner_params=tuner_params,
-                        tune_cols=tune_cols, fused=fused, graph=graph)
+                        tune_cols=tune_cols, fused=fused, mesh=mesh,
+                        graph=graph)
         n_dispatches += 1
         tp = batch.throughput(seconds)["total_mbs"]
         for e, gi in enumerate(idxs):
@@ -196,7 +198,8 @@ def evaluate(names=None, model: DIALModel | None = None,
     mixed catalog in one ``run_batch`` per padded shape bucket, on
     either path; the summary gains ``n_buckets`` / ``n_dispatches``.
     ``ragged=False`` runs one batch per scenario; rows are identical
-    either way.  ``graph=False`` keeps the fused path's eager interval.
+    either way.  ``graph=False`` keeps the fused path's eager interval;
+    ``mesh`` (fused only) splits each batch over its devices.
     """
     dev = resolve_device(device)
     if model is None:
@@ -205,13 +208,9 @@ def evaluate(names=None, model: DIALModel | None = None,
     names = list(names) if names else list(SCENARIOS)
     stats = None
     if ragged and len(names) > 1:
-        if mesh is not None:
-            raise NotImplementedError("evaluate(mesh=...): the multi-device "
-                                      "fleet is not ported (ROADMAP Queue "
-                                      "1 #11)")
         specs = [get_scenario(n) for n in names]
         results, n_buckets, n_dispatches = _evaluate_catalog_ragged(
-            specs, model, seconds, interval, fused, graph, dev)
+            specs, model, seconds, interval, fused, graph, dev, mesh)
         rows = [r.row() for r in results]
         stats = {"n_buckets": n_buckets, "n_dispatches": n_dispatches}
     else:

@@ -286,7 +286,8 @@ def fingerprint(spec: ScenarioSpec) -> str:
 # the sweep
 # ---------------------------------------------------------------------- #
 def _run_bucket(specs_ix, thetas, model, cfg: FuzzConfig, device,
-                graph=None, stats: dict | None = None) -> list[dict]:
+                mesh=None, graph=None,
+                stats: dict | None = None) -> list[dict]:
     """Race every scenario of one shape bucket: static arms + DIAL.
 
     ``specs_ix`` is ``[(index, spec), ...]``; buckets beyond
@@ -316,7 +317,7 @@ def _run_bucket(specs_ix, thetas, model, cfg: FuzzConfig, device,
              for j in range(len(chunk))])
         result = run_batch(batch, model=model, seconds=cfg.seconds,
                            interval=cfg.interval, tune_cols=dial_cols,
-                           fused=True, graph=graph)
+                           fused=True, mesh=mesh, graph=graph)
         tput = batch.throughput(cfg.seconds)["total_mbs"]
         if stats is not None:
             ps = batch.pad_stats()
@@ -352,7 +353,7 @@ def _run_bucket(specs_ix, thetas, model, cfg: FuzzConfig, device,
     return rows
 
 
-def run_sweep(cfg: FuzzConfig, model, diagnose: bool = False,
+def run_sweep(cfg: FuzzConfig, model, mesh=None, diagnose: bool = False,
               max_diagnoses: int | None = 32, ragged: bool = True,
               graph: bool | None = None, device=None) -> dict:
     """Generate, bucket, race, triage on ``device`` (``None``: the CUDA
@@ -362,7 +363,9 @@ def run_sweep(cfg: FuzzConfig, model, diagnose: bool = False,
 
     ``graph`` is ``run_batch``'s: ``None`` replays each interval as a
     CUDA graph on the card, ``False`` runs it eagerly.  Like the device
-    it is an execution knob and stays out of the report.  As in the
+    it is an execution knob and stays out of the report, as ``mesh``
+    does (``run_batch``'s: each chunk's batch split over the mesh's
+    devices, rows bit-equal to the unsharded sweep's).  As in the
     reference, a ~1e-12 drift in a sum's order could flip a generated
     scenario that sits on the triage threshold; the port's sums are
     order-fixed on the card and the CPU alike.
@@ -396,7 +399,7 @@ def run_sweep(cfg: FuzzConfig, model, diagnose: bool = False,
     for key in sorted(buckets, key=lambda k: tuple(k[1:])):
         stats: dict = {}
         rows.extend(_run_bucket(buckets[key], thetas, model, cfg, dev,
-                                graph=graph, stats=stats))
+                                mesh=mesh, graph=graph, stats=stats))
         denom = max(stats.get("real", 0) + stats.get("phantom", 0), 1)
         occupancy.append({
             "shape": "x".join(str(int(x)) for x in key[1:]),
@@ -433,7 +436,7 @@ def run_sweep(cfg: FuzzConfig, model, diagnose: bool = False,
             [(specs[r["index"]], {k: r[k] for k in (
                 "dial_mbs", "best_static_mbs", "best_static_theta",
                 "dial_frac_of_best_static")}) for r in losses[:n_diag]],
-            model, dcfg, graph=graph, device=dev)
+            model, dcfg, mesh=mesh, graph=graph, device=dev)
         for r, d in zip(losses, diags):
             # the loss row already carries name/fingerprint/spec
             r["diagnosis"] = {k: v for k, v in d.items()

@@ -104,6 +104,7 @@ class OnlinePolicy:
     min_samples: int = 48       # per-op floor before an op's forest refits
     capacity: int = 4096        # replay-buffer rows per op
     cooldown: int = 6           # min intervals between refits
+    explore_eps: float = 0.15   # lab-side epsilon-greedy exploration rate
     drift_drop_frac: float = 0.75
     drift_fast: float = 0.5
     drift_slow: float = 0.08

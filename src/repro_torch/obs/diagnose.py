@@ -114,11 +114,11 @@ class DiagnoseConfig:
 # ---------------------------------------------------------------------- #
 # phase A: the race (static arms + DIAL) — defines θ* and the loss
 # ---------------------------------------------------------------------- #
-def race_scenario(spec, model, cfg: DiagnoseConfig, graph=None,
+def race_scenario(spec, model, cfg: DiagnoseConfig, mesh=None, graph=None,
                   device=None) -> dict:
     """Race ``spec`` DIAL-tuned against the static arms; the fuzz
     sweep's per-scenario measurement, for one scenario, on ``device``
-    (``None``: the CUDA card)."""
+    (``None``: the CUDA card).  ``mesh`` is ``run_batch``'s."""
     from repro_torch.lab.batch import run_batch, stack_scenarios
     from repro_torch.lab.scenarios import build
 
@@ -131,7 +131,7 @@ def race_scenario(spec, model, cfg: DiagnoseConfig, graph=None,
     n, m = batch.n_osc, len(thetas)
     run_batch(batch, model=model, seconds=cfg.seconds,
               interval=cfg.interval, tune_cols=m * n + np.arange(n),
-              fused=True, graph=graph)
+              fused=True, mesh=mesh, graph=graph)
     tput = batch.throughput(cfg.seconds)["total_mbs"]
     best = int(np.argmax(tput[:m]))
     dial_mbs, best_mbs = float(tput[m]), float(tput[best])
@@ -143,7 +143,7 @@ def race_scenario(spec, model, cfg: DiagnoseConfig, graph=None,
     }
 
 
-def race_many(cases, model, cfg: DiagnoseConfig, graph=None,
+def race_many(cases, model, cfg: DiagnoseConfig, mesh=None, graph=None,
               device=None) -> list[dict]:
     """Ragged phase A for many scenarios, each against its *own* static
     oracle θ: one fused run per padded shape bucket.
@@ -177,7 +177,7 @@ def race_many(cases, model, cfg: DiagnoseConfig, graph=None,
              for j in range(len(idxs))])
         run_batch(batch, model=model, seconds=cfg.seconds,
                   interval=cfg.interval, tune_cols=tune_cols, fused=True,
-                  graph=graph)
+                  mesh=mesh, graph=graph)
         tput = batch.throughput(cfg.seconds)["total_mbs"]
         for j, i in enumerate(idxs):
             best_mbs = float(tput[2 * j])
@@ -195,8 +195,8 @@ def race_many(cases, model, cfg: DiagnoseConfig, graph=None,
 # ---------------------------------------------------------------------- #
 # phase B: the counterfactual arms — one traced intervened run
 # ---------------------------------------------------------------------- #
-def replay_arms(spec, model, cfg: DiagnoseConfig, theta_star, graph=None,
-                device=None) -> tuple[dict, dict]:
+def replay_arms(spec, model, cfg: DiagnoseConfig, theta_star, mesh=None,
+                graph=None, device=None) -> tuple[dict, dict]:
     """One traced 4-element batch: factual + the three interventions.
 
     Element 0 carries the neutral intervention (bit-identical to the
@@ -205,12 +205,12 @@ def replay_arms(spec, model, cfg: DiagnoseConfig, theta_star, graph=None,
     element 3 freezes θ at the scenario's initial configuration.
     Returns ``(arms MB/s by name, factual decision arrays (N, n, ...))``.
     """
-    return replay_arms_many([(spec, theta_star)], model, cfg, graph=graph,
-                            device=device)[0]
+    return replay_arms_many([(spec, theta_star)], model, cfg, mesh=mesh,
+                            graph=graph, device=device)[0]
 
 
-def replay_arms_many(cases, model, cfg: DiagnoseConfig, graph=None,
-                     device=None) -> list[tuple[dict, dict]]:
+def replay_arms_many(cases, model, cfg: DiagnoseConfig, mesh=None,
+                     graph=None, device=None) -> list[tuple[dict, dict]]:
     """Ragged phase B: every case's four intervention arms, grouped by
     padded shape class into one traced ``(B, n)`` intervened fused run
     per bucket.
@@ -258,8 +258,8 @@ def replay_arms_many(cases, model, cfg: DiagnoseConfig, graph=None,
 
         tcfg = TraceConfig(timeline=False)  # decision provenance suffices
         result = run_batch(batch, model=model, seconds=cfg.seconds,
-                           interval=cfg.interval, fused=True, trace=tcfg,
-                           intervene=iv, graph=graph)
+                           interval=cfg.interval, fused=True, mesh=mesh,
+                           trace=tcfg, intervene=iv, graph=graph)
         tput = batch.throughput(cfg.seconds)["total_mbs"]
         trace = RunTrace.from_fused(result, tcfg, batch.params.tick)
         for j, i in enumerate(idxs):
@@ -406,7 +406,7 @@ def _evidence(cause: str, factual: dict, theta_star, arms: dict,
 # the engine
 # ---------------------------------------------------------------------- #
 def diagnose(spec, model, cfg: DiagnoseConfig | None = None, *,
-             race: dict | None = None, alt_model=None,
+             race: dict | None = None, mesh=None, alt_model=None,
              alt_model_name: str | None = None, graph=None,
              device=None) -> dict:
     """Full counterfactual diagnosis of one scenario.
@@ -417,25 +417,27 @@ def diagnose(spec, model, cfg: DiagnoseConfig | None = None, *,
     ``alt_model`` adds the optional ``model_swap`` arm — the same
     scenario tuned by a different artifact.  Deterministic: the same
     (spec, model, cfg) produce a byte-identical diagnosis dict.
-    ``graph`` and ``device`` are ``run_batch``'s and
+    ``mesh`` and ``graph`` are ``run_batch``'s, ``device``
     :func:`stack_scenarios`' (``None``: graphs on the CUDA card).
     """
     cfg = cfg if cfg is not None else DiagnoseConfig()
     if race is None:
-        race = race_scenario(spec, model, cfg, graph=graph, device=device)
+        race = race_scenario(spec, model, cfg, mesh=mesh, graph=graph,
+                             device=device)
     theta_star = [int(x) for x in race["best_static_theta"]]
 
-    arms, factual = replay_arms(spec, model, cfg, theta_star, graph=graph,
-                                device=device)
+    arms, factual = replay_arms(spec, model, cfg, theta_star, mesh=mesh,
+                                graph=graph, device=device)
     if alt_model is not None:
-        arms["model_swap"] = _swap_many([spec], alt_model, cfg, graph=graph,
-                                        device=device)[0]
+        arms["model_swap"] = _swap_many([spec], alt_model, cfg, mesh=mesh,
+                                        graph=graph, device=device)[0]
     return _finish_diagnosis(spec, race, arms, factual, cfg,
                              alt_model_name=alt_model_name)
 
 
 def diagnose_many(pairs, model, cfg: DiagnoseConfig | None = None, *,
-                  alt_model=None, alt_model_name: str | None = None,
+                  mesh=None, alt_model=None,
+                  alt_model_name: str | None = None,
                   ragged: bool = True, graph=None,
                   device=None) -> list[dict]:
     """Diagnose a whole loser set — ``[(spec, race-or-None), ...]``.
@@ -449,24 +451,24 @@ def diagnose_many(pairs, model, cfg: DiagnoseConfig | None = None, *,
     cfg = cfg if cfg is not None else DiagnoseConfig()
     pairs = list(pairs)
     if not ragged:
-        return [diagnose(spec, model, cfg, race=race, alt_model=alt_model,
-                         alt_model_name=alt_model_name, graph=graph,
-                         device=device)
+        return [diagnose(spec, model, cfg, race=race, mesh=mesh,
+                         alt_model=alt_model, alt_model_name=alt_model_name,
+                         graph=graph, device=device)
                 for spec, race in pairs]
     races = [race for _, race in pairs]
     for i, r in enumerate(races):
         if r is None:   # rare: catalog entries without recorded races —
             # the full-grid phase A defines θ*, so it can't ride
             # race_many's per-case-θ batching
-            races[i] = race_scenario(pairs[i][0], model, cfg, graph=graph,
-                                     device=device)
+            races[i] = race_scenario(pairs[i][0], model, cfg, mesh=mesh,
+                                     graph=graph, device=device)
     replays = replay_arms_many(
         [(spec, races[i]["best_static_theta"])
-         for i, (spec, _) in enumerate(pairs)], model, cfg, graph=graph,
-        device=device)
+         for i, (spec, _) in enumerate(pairs)], model, cfg, mesh=mesh,
+        graph=graph, device=device)
     swaps = (None if alt_model is None
              else _swap_many([spec for spec, _ in pairs], alt_model, cfg,
-                             graph=graph, device=device))
+                             mesh=mesh, graph=graph, device=device))
     out = []
     for i, (spec, _) in enumerate(pairs):
         arms, factual = replays[i]
@@ -477,8 +479,8 @@ def diagnose_many(pairs, model, cfg: DiagnoseConfig | None = None, *,
     return out
 
 
-def _swap_many(specs, alt_model, cfg: DiagnoseConfig, graph=None,
-               device=None) -> list[float]:
+def _swap_many(specs, alt_model, cfg: DiagnoseConfig, mesh=None,
+               graph=None, device=None) -> list[float]:
     """The optional ``model_swap`` arm for many specs: the same
     scenarios tuned by a different artifact, one ragged fused run per
     padded shape bucket."""
@@ -490,7 +492,7 @@ def _swap_many(specs, alt_model, cfg: DiagnoseConfig, graph=None,
     for idxs, batch in bucket_scenarios(built,
                                         device=resolve_device(device)):
         run_batch(batch, model=alt_model, seconds=cfg.seconds,
-                  interval=cfg.interval, fused=True, graph=graph)
+                  interval=cfg.interval, fused=True, mesh=mesh, graph=graph)
         tp = batch.throughput(cfg.seconds)["total_mbs"]
         for e, i in enumerate(idxs):
             out[i] = float(tp[e])

@@ -68,7 +68,11 @@ that tick's schedule row.  On the card they are more static outputs of
 the captured interval, copied after each replay like the decision
 record.  :meth:`FusedLoop.run_trace` normalizes a traced result.
 
-Not ported here: the reference's ``mesh=``.
+The reference's ``mesh=`` (a ``shard_map`` of the batched run) is not a
+loop option here: :func:`repro_torch.lab.batch.run_batch` with ``mesh=``
+splits a batch into one fleet per device, each with a loop of its own
+(:meth:`FusedLoop.advance` on every shard, then :meth:`FusedLoop.finish`
+on each).
 """
 
 from __future__ import annotations
@@ -559,7 +563,9 @@ class FusedLoop:
             graph = torch.cuda.CUDAGraph()
         before = collections.Counter(LAUNCHES)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
+        # the capture stream is the loop's device's (torch's default one
+        # is made once, on whichever device was current then)
+        with torch.cuda.graph(graph, stream=side):
             new, record = self._interval(table, static, dist, mask, iv)
             for dst, src in zip(static.tensors(), new.tensors()):
                 dst.copy_(src)
@@ -682,11 +688,23 @@ class FusedLoop:
         inputs = self.prepare(state, wstate, n_intervals, schedule,
                               tune_mask, intervene)
         carry, records = self.advance(table, inputs, n_intervals, graph)
+        return self.finish(carry, records, n_intervals, self.last_run)
+
+    def finish(self, carry: _Carry, records: dict | None, n_intervals: int,
+               run: dict) -> FusedLoopResult:
+        """The end of a run: the clock and the records to the host.
+
+        ``run`` is the :attr:`last_run` that :meth:`advance` left for
+        this run (a sharded batch advances every shard before it
+        finishes any, so the loop may have advanced another since); it
+        becomes :attr:`last_run` again, with ``device_ms_per_interval``.
+        """
         st = dataclasses.replace(carry.state, now=float(carry.state.now),
                                  tick_index=int(carry.state.tick_index))
-        events = self.last_run.pop("events", None)
+        self.last_run = run
+        events = run.pop("events", None)
         if events and n_intervals:
-            self.last_run["device_ms_per_interval"] = \
+            run["device_ms_per_interval"] = \
                 events[0].elapsed_time(events[1]) / n_intervals
         trace = None
         if records is not None:

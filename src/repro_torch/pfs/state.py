@@ -276,6 +276,19 @@ class Demand:
     write_blocked_new: torch.Tensor   # (n,) bool, absolute
 
 
+def _pow(x: torch.Tensor, e: float) -> torch.Tensor:
+    """``x ** e``: numpy's ``power`` on the CPU, ``torch.pow`` on the card.
+
+    The CPU path is the reference numpy engine's own ``power``:
+    ``torch.pow`` rounds the last bit differently on some inputs, and the
+    congestion factor it computes feeds a near-zero leftover whose sign
+    a last bit can flip.
+    """
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.power(x.numpy(), e))
+    return torch.pow(x, e)
+
+
 def _div_where(num, den, cond, fallback):
     """``np.divide(num, den, out=fallback, where=cond)``, functionally."""
     return torch.where(cond, num / torch.where(cond, den, 1.0), fallback)
@@ -403,8 +416,8 @@ def engine_step(params: SimParams, topo: SimTopo, state: SimState,
     ost_queued = ost_queued + dist.bg_bytes
     eff = torch.where(
         ost_queued > p.ost_buffer_bytes,
-        torch.pow(p.ost_buffer_bytes / torch.clamp_min(ost_queued, 1.0),
-                  p.congestion_exp),
+        _pow(p.ost_buffer_bytes / torch.clamp_min(ost_queued, 1.0),
+             p.congestion_exp),
         1.0)
     ost_shares = ost_active[osc_ost]
     share = _div_where(active_transfer, ost_shares, ost_shares > 0, 0.0)

@@ -45,7 +45,12 @@ exact), traced == untraced θ and state bit for bit on the fused and the
 host loops, no host sync in a traced replay or in the host tracer's
 samples, the timeline tap's ``(5, E)`` segment sum bit-equal to
 ``np.bincount``, and the diagnosis's 4-arm intervened, traced bucket on
-the card equal to the CPU's.
+the card equal to the CPU's.  The rest of DIAL's side: ``run_continual``
+on the card equal to the CPU (the frozen arm whole, the online arm
+through its first refit), a 1-device fleet mesh bit-equal to the
+unsharded run (and, on a host with several cards, a mesh over all of
+them), and a measured fleet tick synchronizing at its stage boundaries
+while an unmeasured one calls no synchronize.
 """
 
 import numpy as np
@@ -1248,3 +1253,141 @@ def test_intervened_traced_bucket_on_card_matches_cpu(cuda):
                     fact_d[k], v, rtol=1e-5 if k in ("probs", "score")
                     else 1e-9, atol=1e-9, err_msg=k)
         assert arms_c["pin_best_static"] != arms_c["factual"]
+
+
+# --------------------------------------------------------------------- #
+# the rest of DIAL's side: continual refit, overhead timing, the mesh
+# --------------------------------------------------------------------- #
+def test_continual_on_card_matches_cpu(cuda):
+    """``run_continual`` on failing_ost on the card and on the CPU: the
+    frozen arm whole, the online arm through its first refit (the refit's
+    float32 forests may then differ by the histogram's summation
+    order)."""
+    import json
+
+    from repro_torch.lab.continual import run_continual
+    from repro_torch.lab.scenarios import get_scenario
+    from repro_torch.learn.online import OnlinePolicy
+
+    policy = OnlinePolicy(refit_every=10, min_samples=32, cooldown=6,
+                          explore_eps=0.10)
+    rows = {}
+    for dev in ("cpu", cuda):
+        for online in (False, True):
+            res = run_continual(get_scenario("failing_ost"), _lab_model(dev),
+                                online=online, seconds=8.0, policy=policy,
+                                gbdt_params=GBDTParams(n_trees=10,
+                                                       max_depth=4),
+                                device=dev)
+            rows[(str(dev), online)] = json.loads(json.dumps(res.row()))
+    assert rows[("cpu", False)] == rows[(str(cuda), False)]
+    cpu, card = rows[("cpu", True)], rows[(str(cuda), True)]
+    assert cpu["refits"] and cpu["refits"][0] == card["refits"][0]
+    i = cpu["refits"][0]["interval"]
+    for k in ("tput_mbs", "theta_trace"):
+        assert cpu[k][:i] == card[k][:i], k
+
+
+def test_one_device_mesh_equals_unsharded(cuda):
+    """The lab bucket through ``run_batch(fused=True, mesh=fleet_mesh(1))``
+    on graphs: every record and state field bit-equal to the unsharded
+    run."""
+    import dataclasses
+
+    from repro_torch.distributed.sharding import fleet_mesh
+    from repro_torch.lab.batch import run_batch
+
+    model = _lab_model(cuda)
+    runs = []
+    for mesh in (None, fleet_mesh(1)):
+        batch = _lab_bucket(cuda)
+        runs.append((batch, run_batch(batch, model, seconds=3.0, fused=True,
+                                      mesh=mesh)))
+    (b0, r0), (b1, r1) = runs
+    for key in r0.trace:
+        assert torch.equal(r0.trace[key], r1.trace[key]), key
+    for f in dataclasses.fields(b0.state):
+        a, b = getattr(b0.state, f.name), getattr(b1.state, f.name)
+        assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), f.name
+    assert _lab_records(r0.decisions) == _lab_records(r1.decisions)
+
+
+def test_measured_ticks_synchronize_and_unmeasured_do_not(cuda, monkeypatch):
+    """A measured fleet tick synchronizes the device at each of its stage
+    boundaries (two on a gated tick, four on a decided one); an
+    unmeasured tick calls no synchronize, and its stage stamps make no
+    sync under ``set_sync_debug_mode("error")``.  Decisions are the
+    same."""
+    from repro_torch.core import agent as A
+    from repro_torch.core.fleet import FleetAgent, SimFleetPort
+    from repro_torch.pfs.engine_torch import FusedEngine
+    from repro_torch.pfs.workloads import table_from_sim
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        A.stage_clock(cuda, False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    model = _lab_model(cuda)
+    syncs, records = {}, {}
+    real = torch.cuda.synchronize
+    for measure in (False, True):
+        sim = _fleet_sim(cuda)
+        fleet = FleetAgent(SimFleetPort(sim), model,
+                           measure_overhead=measure, device=cuda)
+        table, wstate = table_from_sim(sim)
+        engine = FusedEngine(sim.params, sim.topo, table, 100)
+        calls = []
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda device=None: (calls.append(device),
+                                                 real(device)))
+        per_tick = []
+        for _ in range(6):
+            sim.state, wstate = engine.run_interval(sim.state, wstate)
+            n_before = len(calls)
+            fleet.tick()
+            per_tick.append(len(calls) - n_before)
+        monkeypatch.setattr(torch.cuda, "synchronize", real)
+        syncs[measure] = per_tick
+        records[measure] = _lab_records(fleet.decisions)
+    assert syncs[False] == [0] * 6
+    assert set(syncs[True]) <= {2, 4} and 4 in syncs[True]
+    assert records[False] == records[True]
+    assert any(oscs for oscs, _, _, _ in records[True])
+
+
+def test_several_card_mesh_equals_unsharded(cuda):
+    """On a host with two or more cards: the lab bucket over
+    ``fleet_mesh()`` (every card; padded to it), twice (the second run
+    replays each card's cached graph), and one sim through
+    ``run_fleet(backend="torch-sharded")``, bit-equal to the unsharded
+    runs on the first card."""
+    import dataclasses
+
+    from repro_torch.distributed.sharding import fleet_mesh
+    from repro_torch.lab.batch import run_batch
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = fleet_mesh()
+    model = _lab_model(cuda)
+    base_batch = _lab_bucket(cuda)
+    base = run_batch(base_batch, model, seconds=3.0, fused=True)
+    for _ in range(2):
+        batch = _lab_bucket(cuda)
+        got = run_batch(batch, model, seconds=3.0, fused=True, mesh=mesh)
+        for key in base.trace:
+            assert torch.equal(got.trace[key], base.trace[key]), key
+        for f in dataclasses.fields(batch.state):
+            a = getattr(base_batch.state, f.name)
+            b = getattr(batch.state, f.name)
+            assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), \
+                f.name
+    fused_sim, sharded_sim = _fleet_sim(cuda), _fleet_sim(cuda)
+    fused = run_fleet(fused_sim, model, seconds=3.0, backend="torch-fused")
+    sharded = run_fleet(sharded_sim, model, seconds=3.0,
+                        backend="torch-sharded", mesh=mesh)
+    assert _lab_records(sharded.decisions) == _lab_records(fused.decisions)
+    assert torch.equal(sharded_sim.state.ctr_bytes_done,
+                       fused_sim.state.ctr_bytes_done)

@@ -85,6 +85,33 @@ def model(forest_pair):
 # --------------------------------------------------------------------- #
 # the reference in a child process
 # --------------------------------------------------------------------- #
+# the reference's per-interval batch engine on its numpy engine, element
+# by element: the oracle for the reference's XLA engine (a child's
+# source; it needs ``jax``, ``np`` and ``repro.pfs.state.engine_step``)
+NUMPY_ENGINE = r"""
+class NumpyBatchEngine:
+    # the reference's numpy engine, one element at a time
+    def __init__(self, params, topo, n_ticks, **_):
+        self.params, self.topo, self.n_ticks = params, topo, n_ticks
+
+    def run_interval(self, table, state, wstate, sched):
+        outs = []
+        for e in range(np.asarray(state.window_pages).shape[0]):
+            take = lambda t: jax.tree.map(lambda a: np.array(np.asarray(a)[e]), t)
+            st, ws, tb, sc = take(state), take(wstate), take(table), take(sched)
+            st.now, st.tick_index = float(st.now), int(st.tick_index)
+            for i in range(self.n_ticks):
+                dem, ws = tb.demand_step(self.params, ws, st)
+                st = engine_step(self.params, self.topo, st, dem,
+                                 disturbance=jax.tree.map(lambda a: a[i], sc))
+            outs.append((st, ws))
+        stack = lambda ts: jax.tree.map(
+            lambda *a: np.stack([np.asarray(x) for x in a]), *ts)
+        return stack([o[0] for o in outs]), stack([o[1] for o in outs])
+
+
+"""
+
 CHILD = r"""
 import dataclasses, json, sys
 import jax
@@ -119,28 +146,7 @@ for name, c in (("smoke", F.SMOKE), ("default", F.FuzzConfig(seed=0)),
 F.write_fuzz_report(F.run_sweep(cfg, model, diagnose=True), out + "/fuzz")
 
 
-class NumpyBatchEngine:
-    # the reference's numpy engine, one element at a time
-    def __init__(self, params, topo, n_ticks):
-        self.params, self.topo, self.n_ticks = params, topo, n_ticks
-
-    def run_interval(self, table, state, wstate, sched):
-        outs = []
-        for e in range(np.asarray(state.window_pages).shape[0]):
-            take = lambda t: jax.tree.map(lambda a: np.array(np.asarray(a)[e]), t)
-            st, ws, tb, sc = take(state), take(wstate), take(table), take(sched)
-            st.now, st.tick_index = float(st.now), int(st.tick_index)
-            for i in range(self.n_ticks):
-                dem, ws = tb.demand_step(self.params, ws, st)
-                st = engine_step(self.params, self.topo, st, dem,
-                                 disturbance=jax.tree.map(lambda a: a[i], sc))
-            outs.append((st, ws))
-        stack = lambda ts: jax.tree.map(
-            lambda *a: np.stack([np.asarray(x) for x in a]), *ts)
-        return stack([o[0] for o in outs]), stack([o[1] for o in outs])
-
-
-oracle = []
+""" + NUMPY_ENGINE + r"""oracle = []
 for spec in F.generate_specs(cfg):
     built = [build(dataclasses.replace(spec, initial_theta=th))
              for th in cfg.thetas] + [build(spec)]

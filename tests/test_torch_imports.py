@@ -93,6 +93,19 @@ def test_observability_slice_modules_are_probed():
             "repro_torch.lab.diagnose"} <= names
 
 
+def test_dial_slice_modules_are_probed():
+    """The walk above reaches the continual, overhead and mesh
+    modules."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.lab.continual", "repro_torch.distributed",
+            "repro_torch.distributed.sharding",
+            "repro_torch.launch.mesh"} <= names
+
+
 def test_no_jax_or_reference_import_in_sources():
     files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:

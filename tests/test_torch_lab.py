@@ -471,7 +471,8 @@ def test_loop_cache_hits_misses_and_model_version(model):
 
 def test_refusals():
     batch = _mixed_batch()
-    with pytest.raises(NotImplementedError, match="#11"):
+    # the mesh rides the fused path only, as in the reference
+    with pytest.raises(ValueError, match="pass fused=True with mesh"):
         B.run_batch(batch, None, mesh=object())
     with pytest.raises(ValueError, match="untuned host batches"):
         B.run_batch(batch, None, trace=object())

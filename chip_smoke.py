@@ -22,7 +22,10 @@ Phases, in order; any failure exits non-zero:
    path's batched forms (two columns on the OST map, eight on the
    interface map), its bound the larger of the bytes and the longest
    segment's chain of dependent float64 adds (``add_chain_cuda``'s rate
-   over a long chain, times the segment), the forest kernels on the
+   over a long chain, times the segment), ``pow_cr`` (the engine's
+   correctly rounded congestion ``pow``) at the engine's shape and over
+   2^20 values, bit-equal to its plain version, beside the values libm,
+   numpy and ``torch.pow`` round otherwise, the forest kernels on the
    fleet's exact rows (every interface x 24 configurations, no bucket)
    within 1e-5 of the plain margins, two launches bit-equal, timed from
    a CUDA graph (the paired form also at the fused loop's row order,
@@ -128,7 +131,24 @@ Phases, in order; any failure exits non-zero:
    (``segment_sum`` on the 4 x 4 scenario's maps, the paired forest on
    its 16 x 24 rows, ``tree_histogram`` on the first refit's rows)
    against their plain versions.  Launches go into rows 1, 2 and 4;
-   outputs under ``build/dial/``.
+   outputs under ``build/dial/``;
+12. LM training with DIAL in its data path, with the same model:
+   ``train("gemma2-2b", smoke=False)`` at its full published config for
+   6 steps of 4 x 2,048 tokens, the pipeline's 4 host clients tuned by
+   DIAL (every loss and grad norm finite; per step the ``next_batch``
+   and train-step ms, tokens/s, MFU, peak GiB, decisions and ingest
+   MB/s; ``segment_sum`` and the paired forest launched, the three LM
+   kernels not); the three smoke configs in float32 card vs CPU from
+   one seeded parameter tree and the same pipeline (losses and grad
+   norms within 1e-4, parameters within 1e-4 of a leaf's max, θ and
+   decisions bit-equal); resume on the card (6 steps against 3 + a
+   checkpoint + 3, losses within 1e-5) and ``pfs_write`` of that
+   checkpoint card vs CPU (within 1e-9); the LM kernels raising on
+   ``requires_grad`` inputs; and ``run_continual`` of degraded_ost,
+   frozen, card == the CPU engine with the card's ``pow`` (ROADMAP Queue
+   3), its first difference from the CPU with numpy's ``power`` logged.
+   The full run's launches go into the ``segment_sum``, ``pow_cr`` and
+   paired-forest rows; outputs under ``build/train/``.
 
 It prints one JSON line of kernel results, the ``nvidia-smi`` name and
 power limit, and as its last line
@@ -403,6 +423,81 @@ def check_segment_sum(smaps: dict, rng) -> dict:
                 timing="kernel, plain and index_add from a CUDA graph of 50 "
                 "calls; eager_ms from 200 calls on the host",
                 ns_per_add=ns_per_add, cases=cases)
+
+
+# float64 operations of one correctly rounded pow (csrc/pow_cr.cu): the
+# log, a Newton step through one double-double exp, a second exp, each
+# exp ~520 (three products, the Taylor terms, ten squarings)
+POW_CR_OPS = 1100
+
+
+def check_pow_cr(n_osts: int, rng) -> dict:
+    """``pow_cr`` (the engine's congestion factor, ``(buffer / queued) **
+    e``) at the engine's shape, one value per OST, and over 2^20 values
+    of its range: bit-equal to its plain version on the CPU, two
+    launches bit-equal; beside it how many values libm's ``pow``, this
+    host's numpy ``power`` and ``torch.pow`` on the card round
+    otherwise."""
+    import math
+
+    import torch
+    from repro_torch.kernels.pow_cr.kernel import pow_cr_cuda
+    from repro_torch.kernels.pow_cr.ref import pow_cr_ref
+    from repro_torch.pfs.state import SimParams
+
+    e = SimParams().congestion_exp
+    cases = []
+    for n in (n_osts, 1 << 20):
+        x_h = np.exp(rng.uniform(np.log(1e-5), np.log(7e7), n))
+        x = torch.as_tensor(x_h, device="cuda")
+        run = lambda: pow_cr_cuda(x, e)  # noqa: E731
+        got = run()
+        if not torch.equal(got, run()):
+            raise AssertionError("pow_cr: two launches differ")
+        got_h = got.cpu().numpy()
+        want = pow_cr_ref(torch.from_numpy(x_h), e).numpy()
+        if not np.array_equal(got_h.view(np.int64), want.view(np.int64)):
+            raise AssertionError(f"pow_cr: {int((got_h != want).sum())} of "
+                                 f"{n} values differ from the plain version")
+        libm = np.array([math.pow(v, e) for v in x_h])
+        nbytes, ops = 16 * n, POW_CR_OPS * n
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F64_OPS_PER_S * 1e3
+        case = dict(
+            n=n, ms=time_ms_graph(run), eager_ms=time_ms(run, 200),
+            plain_ms=time_ms(lambda: pow_cr_ref(x, e), 5),
+            library_ms=time_ms_graph(lambda: torch.pow(x, e)),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            max_abs_err=0.0,
+            libm_differs=int((libm != got_h).sum()),
+            numpy_differs=int((np.power(x_h, e) != got_h).sum()),
+            torch_pow_differs=int((torch.pow(x, e).cpu().numpy()
+                                   != got_h).sum()))
+        cases.append(case)
+        log(f"pow_cr n={n}: bit-equal to its plain version, two launches "
+            f"bit-equal; kernel {case['ms'] * 1e3:.2f} us (CUDA graph; eager "
+            f"{case['eager_ms'] * 1e3:.2f} us), plain (torch float64 ops on "
+            f"the card) {case['plain_ms'] * 1e3:.2f} us, torch.pow "
+            f"{case['library_ms'] * 1e3:.2f} us; bound "
+            f"{case['bound_ms'] * 1e3:.4f} us ({case['bound_by']}); values "
+            f"rounded otherwise by libm pow {case['libm_differs']}, numpy "
+            f"power {case['numpy_differs']}, torch.pow on the card "
+            f"{case['torch_pow_differs']}")
+    head = cases[0]
+    return dict(name="pow_cr", route="cuda",
+                source="src/repro_torch/csrc/pow_cr.cu",
+                replaces="src/repro/pfs/engine_jax.py:175 (jnp.power in the "
+                "engine tick; XLA, no Pallas kernel)",
+                max_abs_err=0.0,
+                tolerance="bit-equal to the plain version on the CPU; two "
+                "launches bit-equal",
+                ms=head["ms"], eager_ms=head["eager_ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                shape=f"{head['n']} values (one per OST)",
+                timing="kernel and torch.pow from a CUDA graph of 50 calls; "
+                "plain from 5 eager calls", cases=cases)
 
 
 def check_forest(name, replaces, x, op, feature, threshold, leaf, base,
@@ -951,7 +1046,8 @@ def run_phases(seed: int, model_prefix, dev) -> tuple:
         {"osc_ost": (sim.topo.ost_map, 1), "osc_ost x2": (sim.topo.ost_map, 2),
          "osc_client": (sim.topo.client_map, 1),
          "entry_row": (table.row_map, 1), "entry_osc": (table.osc_map, 1),
-         "entry_osc x8": (table.osc_map, 8)}, rng)]
+         "entry_osc x8": (table.osc_map, 8)}, rng),
+        check_pow_cr(sim.n_osts, rng)]
     feature, threshold, leaf, base, _, n_features = pair_forests(
         model.read_forest, model.write_forest)
     x, op = pack_fleet_rows(feats[READ], feats[WRITE], n_features)
@@ -1029,7 +1125,8 @@ def run_phases(seed: int, model_prefix, dev) -> tuple:
                    "run_fleet torch-fused eager": fused["eager"]["counts"],
                    "run_fleet torch-fused graph (captured x replays)":
                        graph_counts}
-    paths = {"segment_sum": fleet_paths, "paired_forest_margin": fleet_paths,
+    paths = {"segment_sum": fleet_paths, "pow_cr": fleet_paths,
+             "paired_forest_margin": fleet_paths,
              "forest_margin": {"DIALModel.predict_proba": proba_counts},
              "tree_histogram": {"train_models": trained["train_counts"]}}
     for k in kernels:
@@ -1238,8 +1335,13 @@ def _kernel_class(name: str) -> str:
     for key, cls in (("flash_", "flash_attention"),
                      ("rglru_scan", "rglru_scan"),
                      ("selective_scan", "selective_scan"),
+                     ("segment_sum", "segment_sum"), ("forest", "forest"),
                      ("gemm", "matmul"), ("xmma", "matmul"),
-                     ("nvjet", "matmul"), ("cutlass", "matmul")):
+                     ("nvjet", "matmul"), ("cutlass", "matmul"),
+                     ("reduce", "reduction"), ("softmax", "reduction"),
+                     ("index", "indexing"), ("scatter", "indexing"),
+                     ("gather", "indexing"), ("elementwise", "elementwise"),
+                     ("copy", "copy"), ("cat", "copy")):
         if key in name:
             return cls
     return "other"
@@ -2370,6 +2472,7 @@ def obs_phase(model, seed: int, dev, kernels: list, card: str) -> str:
 # ---------------------------------------------------------------------- #
 CONT_SCENARIO = "failing_ost"             # run_comparison's default
 DIAL_ROOT = os.path.join(ROOT, "build", "dial")
+TRAIN_ROOT = os.path.join(ROOT, "build", "train")
 
 # A child process's run, its result, seconds and launches into
 # ``<out>/run.json``: the second card comparison and the curriculum run
@@ -2763,6 +2866,404 @@ def dial_phase(model, seed: int, dev, kernels: list, card: str,
     log(f"{card} | phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------- #
+# phase 12: LM training with DIAL in its data path
+# ---------------------------------------------------------------------- #
+TRAIN_ARCH = "gemma2-2b"                  # the family that fits: 2.61 B
+TRAIN_FULL = dict(steps=6, batch=4, seq_len=2048, n_hosts=4)
+# each smoke step's quota (800 MB a host) takes two probe intervals of
+# the 520 MB a host reads in one, so DIAL decides from the third step on
+TRAIN_SMOKE = dict(steps=3, batch=4, seq_len=64, n_hosts=4,
+                   bytes_per_token=800e6 * 4 / (4 * 64))
+# Adam's eps in the card-vs-CPU runs: at the default 1e-8 an element
+# whose gradient is at rounding level (~1e-9) steps by about +-lr on its
+# sign, whichever device computed it (2.65e-4 of a leaf's largest |value|
+# after 3 steps, on the card); 1e-3 bounds that gain at 1/eps
+TRAIN_SMOKE_EPS = 1e-3
+BF16_OPS_PER_S = 989e12                   # H100 SXM bf16 dense
+LM_KERNELS = ("flash_attention", "rglru_scan", "selective_scan")
+CHECK_SCENARIO = "degraded_ost"           # ROADMAP Queue 3: pow_cr
+
+
+def train_full(model, dev, card: str) -> dict:
+    """``train`` of gemma2-2b at its full published config for 6 steps
+    of 4 x 2,048 tokens, DIAL (phase 3's model) tuning the pipeline's 4
+    host clients; no checkpoint.  Every loss and grad norm finite; the
+    two DIAL kernels launched, the LM kernels not (training runs the
+    plain forms)."""
+    import torch
+
+    from repro_torch.launch.train import train
+    from repro_torch.train.optimizer import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, secs, counts = counted(lambda: train(
+        TRAIN_ARCH, smoke=False, dial_model=model, dial_model_path=None,
+        device=dev, log_every=1, **TRAIN_FULL))
+    recs = out["records"]
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in recs) or len(recs) != TRAIN_FULL["steps"]:
+        raise AssertionError("train (full): a loss or grad norm is not "
+                             "finite")
+    for k in LM_KERNELS:
+        if counts.get(k, 0):
+            raise AssertionError(f"train (full): {k} launched {counts[k]} "
+                                 "times on the training path")
+    n_params = sum(p.numel() for p in tree_leaves(out["params"]))
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq_len"]
+    for r in recs:
+        s = r["step_ms"] / 1e3
+        r["tokens_per_s"] = tokens / s
+        r["mfu"] = 6 * n_params * tokens / s / BF16_OPS_PER_S
+        log(f"{card} | train {TRAIN_ARCH} full step {r['step']}: loss "
+            f"{r['loss']:.4f}, grad norm {r['grad_norm']:.4f}, next_batch "
+            f"{r['next_batch_ms']:.2f} ms, train step {r['step_ms']:.2f} ms, "
+            f"{r['tokens_per_s']:.1f} tokens/s, MFU {r['mfu']:.4f} (6 N T "
+            f"over the step at bf16 989 TFLOP/s), peak "
+            f"{r['peak_gib']:.2f} GiB, DIAL decisions {r['decisions']}, "
+            f"ingest {r['ingest_mbs']:.3f} MB/s")
+    log(f"{card} | train {TRAIN_ARCH} full: {n_params / 1e9:.3f} B "
+        f"parameters, {len(recs)} steps in {secs:.3f} s; launches "
+        + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    keep = ("step", "loss", "grad_norm", "next_batch_ms", "step_ms",
+            "tokens_per_s", "mfu", "peak_gib", "decisions", "ingest_mbs")
+    return dict(seconds=secs, counts=counts, n_params=n_params,
+                steps=[{k: r[k] for k in keep} for r in recs], out=out)
+
+
+def train_breakdown(out: dict, dev, card: str) -> dict:
+    """Where one more full-width train step and one more ``next_batch``
+    spend the card's time: each span on the host clock (synchronized),
+    then once more under ``torch.profiler``, device time summed by
+    kernel class."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    step_fn = make_train_step(cfg, AdamWConfig(
+        total_steps=TRAIN_FULL["steps"], warmup_steps=5))
+    pipe, state = out["pipeline"], [out["params"], out["opt_state"]]
+    batch = {k: torch.as_tensor(v, device=dev).long()
+             for k, v in pipe.next_batch().items()}
+
+    def train_step():
+        state[:2] = step_fn(state[0], state[1], batch)[:2]
+
+    res = {}
+    for name, fn in (("train step", train_step),
+                     ("next_batch", pipe.next_batch)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [a for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA]
+        by = {}
+        for a in ops:
+            cls = _kernel_class(a.key)
+            by[cls] = by.get(cls, 0.0) + a.device_time_total / 1e3
+        busy = sum(by.values())
+        res[name] = dict(wall_ms=wall, device_busy_ms=busy,
+                         launches=sum(a.count for a in ops),
+                         device_ms_by_class=by)
+        log(f"{card} | train breakdown, {name}: wall {wall:.2f} ms; "
+            + (f"device busy {busy:.2f} ms ({busy / wall:.1%}) in "
+               f"{res[name]['launches']} operations; by class " + ", ".join(
+                   f"{k} {v:.2f} ms" for k, v in sorted(
+                       by.items(), key=lambda kv: -kv[1]))
+               if ops else "busy share not measured (the profiler "
+               "recorded no device activity)"))
+    return res
+
+
+def _smoke_run(arch: str, tree, model, dev) -> dict:
+    """``train``'s loop at a float32 smoke config on ``dev`` from the
+    parameters ``tree`` (the reference's layout, numpy): 3 steps through
+    the DIAL-tuned pipeline; losses, grad norms, the final parameters,
+    the knobs and the decisions."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dc.replace(get_smoke_config(arch), param_dtype="float32")
+    c = TRAIN_SMOKE
+    pipe = DataPipeline(PipelineConfig(
+        global_batch=c["batch"], seq_len=c["seq_len"],
+        vocab_size=cfg.vocab_size, n_hosts=c["n_hosts"],
+        bytes_per_token=c["bytes_per_token"]), dial_model=model, device=dev)
+    params = lm_params_from_numpy(cfg, tree, dev)
+    state = init_opt_state(params)
+    step = make_train_step(cfg, AdamWConfig(peak_lr=1e-2, min_lr=1e-3,
+                                            warmup_steps=1, total_steps=4,
+                                            eps=TRAIN_SMOKE_EPS))
+    losses, norms = [], []
+    for _ in range(c["steps"]):
+        batch = {k: torch.as_tensor(v, device=dev).long()
+                 for k, v in pipe.next_batch().items()}
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return dict(losses=losses, norms=norms,
+                params=lm_params_to_numpy(cfg, params),
+                theta=(pipe.sim.window_pages.tolist(),
+                       pipe.sim.rpcs_in_flight.tolist()),
+                decisions=[[(osc, op, tuple(d.theta), bool(d.changed))
+                            for osc, op, d in a.decisions]
+                           for a in pipe.agents])
+
+
+def train_card_vs_cpu(model, model_cpu, card: str) -> dict:
+    """The three smoke configs in float32, the same parameters (one
+    seeded tree through ``lm_params_from_numpy``) and the same pipeline
+    on the card and the CPU: losses and grad norms within 1e-4
+    (relative), every parameter after the last step within 1e-4 of the
+    largest |leaf| (Adam's eps ``TRAIN_SMOKE_EPS``; a zero-initialized
+    leaf such as a gate bias reaches only ~lr in 3 steps, so its own
+    largest |value| is no scale for float32 rounding), the pipeline's θ
+    and decisions bit-equal."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.convert import lm_params_to_numpy
+    from repro_torch.models import lm
+
+    out = {}
+    for arch in ARCHS:
+        cfg = dc.replace(get_smoke_config(arch), param_dtype="float32")
+        tree = lm_params_to_numpy(cfg, lm.init_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"))
+        t0 = time.perf_counter()
+        card_run = _smoke_run(arch, tree, model, torch.device("cuda"))
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_run = _smoke_run(arch, tree, model_cpu, "cpu")
+        t_cpu = time.perf_counter() - t0
+        def leaves(t):
+            if isinstance(t, np.ndarray):
+                return [t]
+            return [x for v in (t.values() if isinstance(t, dict) else t)
+                    for x in leaves(v)]
+
+        pairs = list(zip(leaves(card_run["params"]),
+                         leaves(cpu_run["params"])))
+        scale = max(float(np.abs(b).max()) for _, b in pairs)
+        err = [float(np.abs(a - b).max()) for a, b in pairs]
+        worst = max(err) / scale
+        # beside it, against each leaf's own largest |value|
+        own = max(e / max(float(np.abs(b).max()), 1e-30)
+                  for e, (_, b) in zip(err, pairs))
+        for k in ("losses", "norms"):
+            if not np.allclose(card_run[k], cpu_run[k], rtol=1e-4, atol=0):
+                raise AssertionError(f"train card vs CPU ({arch}): {k} "
+                                     f"{card_run[k]} vs {cpu_run[k]}")
+        if worst > 1e-4:
+            raise AssertionError(f"train card vs CPU ({arch}): parameters "
+                                 f"differ by {worst} of the largest |leaf|")
+        for k in ("theta", "decisions"):
+            if card_run[k] != cpu_run[k]:
+                raise AssertionError(f"train card vs CPU ({arch}): the "
+                                     f"pipeline's {k} differ")
+        dl = max(abs(a - b) / abs(b) for a, b in zip(card_run["losses"],
+                                                      cpu_run["losses"]))
+        out[arch] = dict(card_s=t_card, cpu_s=t_cpu, loss_rel=dl,
+                         param_rel=worst, param_rel_own_leaf=own,
+                         losses=card_run["losses"],
+                         decisions=sum(map(len, card_run["decisions"])))
+        log(f"{card} | train card vs CPU, {arch} SMOKE float32, "
+            f"{TRAIN_SMOKE['steps']} steps of {TRAIN_SMOKE['batch']} x "
+            f"{TRAIN_SMOKE['seq_len']}: losses {card_run['losses']} (max "
+            f"relative difference {dl:.3g}), parameters within {worst:.3g} "
+            f"of the largest |leaf| ({own:.3g} of a leaf's own largest), θ "
+            f"and {out[arch]['decisions']} decisions "
+            f"bit-equal; card {t_card:.3f} s, CPU {t_cpu:.3f} s")
+    return out
+
+
+def train_resume(model, dev, card: str) -> dict:
+    """gemma2-2b SMOKE on the card: ``train`` 6 steps straight against 3
+    steps, a checkpoint, and 3 resumed (losses within 1e-5: the
+    embedding's backward sums with atomics on the card).  Then
+    ``pfs_write`` of that checkpoint's bytes on the card and the CPU
+    (2 clients x 4 OSTs, hosts 0 and 1): flush times within 1e-9
+    relative."""
+    import shutil
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch.train import train
+    from repro_torch.pfs.engine import PFSSim
+
+    d = os.path.join(TRAIN_ROOT, "ckpt")
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    kw = dict(batch=4, seq_len=64, seed=3, log_every=100, device=dev,
+              dial_model=model, ckpt_through_pfs=False)
+    t0 = time.perf_counter()
+    full = train(TRAIN_ARCH, steps=6, **kw)
+    train(TRAIN_ARCH, steps=3, ckpt_dir=d, ckpt_every=3, **kw)
+    resumed = train(TRAIN_ARCH, steps=6, ckpt_dir=d, ckpt_every=3, **kw)
+    secs = time.perf_counter() - t0
+    diff = np.abs(np.array(resumed["losses"]) - full["losses"][3:])
+    if len(resumed["losses"]) != 3 or not (diff <= 1e-5).all():
+        raise AssertionError(f"train resume: {resumed['losses']} vs "
+                             f"{full['losses'][3:]}")
+    with np.load(os.path.join(d, "ckpt_00000003.npz")) as z:
+        nbytes = sum(z[k].nbytes for k in z.files)
+    flush = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        mgr = CheckpointManager(os.path.join(TRAIN_ROOT, name),
+                                sim=PFSSim(2, 4, device=where), hosts=[0, 1])
+        t0 = time.perf_counter()
+        flush[name] = (mgr.pfs_write(nbytes), time.perf_counter() - t0)
+    rel = abs(flush["card"][0] - flush["cpu"][0]) / flush["cpu"][0]
+    if not rel <= 1e-9:
+        raise AssertionError(f"pfs_write: card {flush['card'][0]!r} vs CPU "
+                             f"{flush['cpu'][0]!r} sim s")
+    log(f"{card} | train resume ({TRAIN_ARCH} SMOKE, 6 steps vs 3 + a "
+        f"checkpoint + 3 resumed, {secs:.3f} s): losses "
+        f"{resumed['losses']} vs {full['losses'][3:]}, max |difference| "
+        f"{diff.max():.3g}; pfs_write of the checkpoint's {nbytes} bytes: "
+        f"flush {flush['card'][0]!r} sim s on the card ({flush['card'][1]:.3f}"
+        f" s wall), {flush['cpu'][0]!r} on the CPU ({flush['cpu'][1]:.3f} s"
+        f" wall), relative difference {rel:.3g}")
+    return dict(seconds=secs, loss_diff=float(diff.max()), nbytes=nbytes,
+                flush_sim_s=flush["card"][0], flush_wall_s=flush["card"][1],
+                cpu_flush_wall_s=flush["cpu"][1])
+
+
+def kernels_refuse_grad(dev) -> None:
+    """Each LM kernel's wrapper raises on a CUDA input that requires a
+    gradient (and launches nothing)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+    from repro_torch.kernels.rglru_scan.kernel import rglru_cuda
+
+    t = lambda *s: torch.rand(s, device=dev, requires_grad=True)  # noqa: E731
+    calls = {"flash_attention": lambda: flash_attention_cuda(
+                 t(1, 2, 8, 16), t(1, 1, 8, 16), t(1, 1, 8, 16)),
+             "rglru_scan": lambda: rglru_cuda(t(1, 8, 32), t(1, 8, 32)),
+             "selective_scan": lambda: selective_scan_cuda(
+                 t(1, 8, 32), t(1, 8, 32), -t(32, 8), t(1, 8, 8),
+                 t(1, 8, 8), t(32))}
+    for name, call in calls.items():
+        before = LAUNCHES[name]
+        try:
+            call()
+        except RuntimeError as e:
+            if "gradient" not in str(e) or LAUNCHES[name] != before:
+                raise
+        else:
+            raise AssertionError(f"{name}: a requires_grad input launched")
+
+
+def continual_check(model, model_cpu, card: str) -> dict:
+    """ROADMAP Queue 3's degraded_ost check: ``run_continual`` of it,
+    frozen, for 10 intervals on the card and on the CPU, each with phase
+    3's model on its own device.  Held: the card bit-equal to the CPU
+    engine with the card's congestion ``pow`` (``pow_cr``'s plain
+    version in place of numpy's ``power``).  Reported: the first interval
+    where the card differs from the CPU as it runs (numpy's ``power``,
+    the reference's, is SVML's on an AVX-512 host and rounds ~5% of
+    values otherwise; no card kernel reproduces it)."""
+    import torch
+
+    from repro_torch.kernels.pow_cr.ref import pow_cr_ref
+    from repro_torch.lab.continual import run_continual
+    from repro_torch.lab.scenarios import get_scenario
+    from repro_torch.pfs import state
+
+    def run(dev, m):
+        t0 = time.perf_counter()
+        row = json.loads(json.dumps(run_continual(
+            get_scenario(CHECK_SCENARIO), m, online=False, seconds=5.0,
+            device=dev).row()))
+        return row, time.perf_counter() - t0
+
+    numpy_pow = state._pow
+    got, t_card = run(torch.device("cuda"), model)
+    cpu, t_cpu = run("cpu", model_cpu)
+    state._pow = lambda x, e: (pow_cr_ref(x, e) if x.device.type == "cpu"
+                               else numpy_pow(x, e))
+    try:
+        cpu_cr, t_cpu_cr = run("cpu", model_cpu)
+    finally:
+        state._pow = numpy_pow
+    if got != cpu_cr:
+        first = {k: _first_diff(got[k], cpu_cr[k]) for k in got
+                 if isinstance(got[k], list) and got[k] != cpu_cr[k]}
+        raise AssertionError(f"continual {CHECK_SCENARIO}: the card differs "
+                             f"from the CPU with the card's pow, first "
+                             f"differing interval per field {first}")
+    first_numpy = _first_diff(got["tput_mbs"], cpu["tput_mbs"])
+    log(f"{card} | open check: run_continual({CHECK_SCENARIO}, frozen, 5 s = "
+        f"{len(got['tput_mbs'])} intervals): card == CPU with the card's "
+        f"pow (pow_cr's plain version) bit for bit; against the CPU as it "
+        f"runs (numpy's power) "
+        + ("identical" if first_numpy is None and got == cpu else
+           f"first differing interval {first_numpy} (MB/s "
+           f"{got['tput_mbs'][first_numpy]!r} vs "
+           f"{cpu['tput_mbs'][first_numpy]!r})")
+        + f"; card {t_card:.3f} s, CPU {t_cpu:.3f} s and {t_cpu_cr:.3f} s")
+    return dict(card_s=t_card, cpu_s=t_cpu, intervals=len(got["tput_mbs"]),
+                numpy_first_difference=first_numpy)
+
+
+def train_phase(model, dev, kernels: list, card: str) -> None:
+    """Phase 12, LM training with DIAL in its data path: gemma2-2b at full
+    width, the smoke configs card vs CPU, resume, the kernels refusing
+    gradients, and Queue 3's degraded_ost check.  The full-width run's
+    launches go into the ``segment_sum``, ``pow_cr`` and paired-forest
+    rows under a ``train`` path."""
+    import torch
+
+    from repro_torch.convert import forest_to_numpy, model_from_numpy
+    from repro_torch.pfs.state import READ, WRITE
+
+    t_phase = time.perf_counter()
+    by_name = {k["name"]: k for k in kernels}
+    model_cpu = model_from_numpy(*(forest_to_numpy(model.forest(op))
+                                   for op in (READ, WRITE)), device="cpu")
+    full = train_full(model, dev, card)
+    full["breakdown"] = train_breakdown(full.pop("out"), dev, card)
+    torch.cuda.empty_cache()
+    for kname in ("segment_sum", "pow_cr", "paired_forest_margin"):
+        add_path(by_name[kname], f"train {TRAIN_ARCH} full",
+                 full["counts"].get(kname, 0))
+    torch.cuda.empty_cache()
+    smoke = train_card_vs_cpu(model, model_cpu, card)
+    resume = train_resume(model, dev, card)
+    kernels_refuse_grad(dev)
+    log(f"{card} | the three LM kernels refuse requires_grad inputs")
+    check = continual_check(model, model_cpu, card)
+    for k in LM_KERNELS:
+        by_name[k]["train_launches"] = full["counts"].get(k, 0)
+    by_name["paired_forest_margin"]["train"] = dict(
+        full={k: v for k, v in full.items() if k != "counts"},
+        card_vs_cpu=smoke, resume=resume, continual_check=check,
+        phase_s=time.perf_counter() - t_phase)
+    log(f"{card} | phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2806,6 +3307,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dial_phase(model, args.seed, torch.device("cuda"), kernels, smi,
                cut_report)
+    torch.cuda.empty_cache()
+    train_phase(model, torch.device("cuda"), kernels, smi)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

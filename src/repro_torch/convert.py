@@ -14,6 +14,11 @@ The LM's weights and decode caches (:func:`lm_params_from_numpy`,
 :func:`lm_cache_from_numpy`) keep their dtypes: float32 stays float32,
 bfloat16 (ml_dtypes' ``bfloat16`` in numpy, which ``torch.from_numpy``
 rejects) goes through float32, which holds every bfloat16 exactly.
+:func:`lm_params_to_numpy` and the optimizer-state pair
+(:func:`opt_state_to_numpy`, :func:`opt_state_from_numpy`) carry the
+port's trees back into the reference's stacked layout, bfloat16 as
+float32 (numpy has no bfloat16 of its own); the checkpoint manager
+writes that layout.
 """
 
 from __future__ import annotations
@@ -196,3 +201,50 @@ def lm_cache_from_numpy(cfg, cache, device=None) -> list:
             c = {k: np.swapaxes(np.asarray(c[k]), 1, 2) for k in ("k", "v")}
         out.append(_tree(lambda a: _lm_tensor(a, dev), c))
     return out
+
+
+def _stack_trees(trees: list):
+    """Trees of one structure -> one tree, each leaf stacked on a new
+    leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def lm_params_to_numpy(cfg, params) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the port's parameters
+    as the reference's tree, host numpy -- ``stack`` a tuple over the
+    pattern positions, each leaf with the leading ``n_rep`` axis,
+    ``tail`` the rest; bfloat16 leaves as float32 (exact)."""
+    out = {k: _tree(_host, v) for k, v in params.items() if k != "layers"}
+    layers = [_tree(_host, p) for p in params["layers"]]
+    n_pat = len(cfg.layer_pattern)
+    out["stack"] = tuple(
+        _stack_trees([layers[r * n_pat + i] for r in range(cfg.n_rep)])
+        for i in range(n_pat))
+    out["tail"] = tuple(layers[cfg.n_rep * n_pat:])
+    return out
+
+
+def opt_state_to_numpy(cfg, opt_state) -> dict:
+    """The optimizer state ``{"step", "m", "v"}`` in the reference's
+    layout (``step`` a 0-dim int32 array, the moments as
+    :func:`lm_params_to_numpy`)."""
+    return {"step": np.asarray(int(opt_state["step"]), dtype=np.int32),
+            "m": lm_params_to_numpy(cfg, opt_state["m"]),
+            "v": lm_params_to_numpy(cfg, opt_state["v"])}
+
+
+def opt_state_from_numpy(cfg, opt_state, device=None) -> dict:
+    """The reference's optimizer state (numpy leaves) as the port's, on
+    ``device``: ``step`` a 0-dim int32 tensor, float32 moments."""
+    dev = resolve_device(device)
+    return {"step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "m": lm_params_from_numpy(cfg, opt_state["m"], dev),
+            "v": lm_params_from_numpy(cfg, opt_state["v"], dev)}

@@ -10,4 +10,23 @@ from __future__ import annotations
 
 import collections
 
+import torch
+
 LAUNCHES: collections.Counter = collections.Counter()
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel.
+
+    The LM kernels write their outputs through raw pointers, out of
+    autograd's sight, and have no backward: a loss through them would
+    get no gradient there, silently.  Training runs the plain forms
+    (``models/*.py``'s ``*_block``); serving runs under
+    ``torch.inference_mode()``.
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires a gradient and the kernel has no "
+            "backward; train through the plain training forms, or call it "
+            "under torch.no_grad() / torch.inference_mode()")

@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
 DECODE_KEYS = 64    # the decode form's largest split (keys staged per block)
@@ -97,8 +97,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16), any strides with a contiguous last axis (a cache slice is
     passed as a view); the decode and bf16 forms also need 16-byte aligned
     q/k/v rows.  Returns ``(B, Hq, Sq, D)`` in q's dtype, laid
-    out ``(B, Sq, Hq, D)`` in memory (a transposed view).
+    out ``(B, Sq, Hq, D)`` in memory (a transposed view).  Raises
+    ``RuntimeError`` on inputs that require a gradient (the kernel has
+    no backward).
     """
+    refuse_grad("flash_attention_cuda", q, k, v)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention_cuda: q on {dev}, k on "

@@ -7,7 +7,7 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 
 STATE_SIZES = (4, 8, 16)   # the kernel's instantiations of N
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -29,7 +29,9 @@ def selective_scan_cuda(u, delta, A, B, C, D):
     """Launch the selective scan on contiguous tensors: u, delta ``(Bt, S,
     Dm)``, B, C ``(Bt, S, N)`` of one dtype (float32 or bfloat16), A
     ``(Dm, N)`` and D ``(Dm,)`` float32.  Returns y ``(Bt, S, Dm)`` and the
-    final state ``(Bt, Dm, N)``, both float32."""
+    final state ``(Bt, Dm, N)``, both float32.  Raises ``RuntimeError`` on
+    inputs that require a gradient (the kernel has no backward)."""
+    refuse_grad("selective_scan_cuda", u, delta, A, B, C, D)
     dev = u.device
     if dev.type != "cuda":
         raise ValueError(f"selective_scan_cuda: u on {dev}")

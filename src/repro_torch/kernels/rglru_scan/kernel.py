@@ -7,7 +7,7 @@ import ctypes
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, refuse_grad
 
 _fn = None
 
@@ -25,7 +25,9 @@ def _entry():
 
 def rglru_cuda(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Launch the RG-LRU scan on contiguous float32 ``(B, S, W)`` x and a;
-    returns every state, ``(B, S, W)`` float32."""
+    returns every state, ``(B, S, W)`` float32.  Raises ``RuntimeError``
+    on inputs that require a gradient (the kernel has no backward)."""
+    refuse_grad("rglru_cuda", x, a)
     dev = x.device
     if dev.type != "cuda" or a.device != dev:
         raise ValueError(f"rglru_cuda: x on {dev}, a on {a.device}")

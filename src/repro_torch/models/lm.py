@@ -1,7 +1,7 @@
-"""The decoder-only LM of the serving path: dense (gemma2), hybrid
-(recurrentgemma) and SSM (falcon-mamba) stacks.
+"""The decoder-only LM: dense (gemma2), hybrid (recurrentgemma) and SSM
+(falcon-mamba) stacks, for training and serving.
 
-Mirrors the serving half of ``repro/models/lm.py``.  The reference scans
+Mirrors ``repro/models/lm.py``.  The reference scans
 ``layer_pattern * n_rep`` with stacked parameters and unrolls the tail;
 the port keeps one flat list of layers in the same order, layer
 ``r * len(pattern) + i`` being the reference's ``stack[i][..][r]`` and
@@ -12,16 +12,22 @@ Entry points:
     init_params                        parameters (shapes and init
                                        formulas of the reference, drawn
                                        from a torch.Generator)
+    forward_train                      full-sequence activations through
+                                       the plain training forms (autograd)
+    loss_fn                            sequence-chunked cross-entropy (never
+                                       materializes the full (B, S, V)
+                                       logits)
     prefill                            prompt -> last logits + cache
     decode_step                        one cached token per sequence
 
-Not ported yet (ROADMAP Queue 1 #12): MoE layers, multi-codebook audio,
-image-prefix embeddings, ``forward_train`` and ``loss_fn``.
+Not ported yet (ROADMAP Queue 1 #12b): MoE layers, multi-codebook audio
+and image-prefix embeddings.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
@@ -33,8 +39,8 @@ from repro_torch.models.layers import apply_norm, dtype_of, init_normal, mlp
 
 def _unported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 #12: the rest of the "
-        "LM stack)")
+        f"{what} is not ported yet (ROADMAP Queue 1 #12b: MoE and the "
+        "other architectures)")
 
 
 def _check_config(cfg: ModelConfig):
@@ -130,6 +136,100 @@ def logits_for(params, x, cfg: ModelConfig):
     if cfg.final_softcap > 0:
         out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
     return out
+
+
+# --------------------------------------------------------------------- #
+# training: stack, forward, loss
+# --------------------------------------------------------------------- #
+def _apply_layer(x, p, cfg: ModelConfig, kind: str, positions):
+    """A layer's training form (no cache)."""
+    if kind in (ATTN, ATTN_LOCAL):
+        return _attention_layer(x, p, cfg, lambda y: (attn.attention_block(
+            y, p["attn"], cfg, positions, window=_window(cfg, kind)), None))[0]
+    if kind == MAMBA:
+        return x + mam.mamba_block(apply_norm(x, p["norm1"], cfg),
+                                   p["mamba"], cfg)
+    x = x + rgl.recurrent_block(apply_norm(x, p["norm1"], cfg), p["rec"], cfg)
+    return x + mlp(apply_norm(x, p["norm2"], cfg), p["mlp"], cfg)
+
+
+def run_stack(x, params, cfg: ModelConfig, positions, remat: bool = True):
+    """Apply every layer (training forms).  Returns (x, aux); aux, the MoE
+    balance loss of the reference, is 0 (no MoE layer is ported).
+
+    The repeated layers run in super-blocks of ``len(layer_pattern)``
+    consecutive layers, the reference's scan body; with ``remat`` each
+    super-block is checkpointed (its activations recomputed in the
+    backward pass), as the reference's ``jax.checkpoint`` of the body.
+    The tail is unrolled, never rematerialized.
+    """
+    kinds = cfg.layer_types()
+    n_pat = len(cfg.layer_pattern)
+    n_stack = cfg.n_rep * n_pat
+
+    def superblock(x, first):
+        for j in range(first, first + n_pat):
+            x = _apply_layer(x, params["layers"][j], cfg, kinds[j],
+                             positions)
+        return x
+
+    for first in range(0, n_stack, n_pat):
+        x = (checkpoint(superblock, x, first, use_reentrant=False) if remat
+             else superblock(x, first))
+    for j in range(n_stack, cfg.n_layers):
+        x = _apply_layer(x, params["layers"][j], cfg, kinds[j], positions)
+    return x, x.new_zeros((), dtype=torch.float32)
+
+
+def forward_train(params, tokens, cfg: ModelConfig, remat: bool = True):
+    """Full-sequence activations before the head, tokens (B, S) ->
+    (x (B, S, D), aux)."""
+    _check_config(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, aux = run_stack(x, params, cfg, positions, remat=remat)
+    return apply_norm(x, params["final_norm"], cfg), aux
+
+
+def _chunk_nll(params, xi, yi, cfg):
+    """Summed negative log-likelihood of one sequence chunk, and its
+    count of valid (label >= 0) positions."""
+    lg = logits_for(params, xi, cfg)                       # (B, C, V) f32
+    lse = torch.logsumexp(lg, dim=-1)
+    valid = yi >= 0
+    tgt = torch.gather(lg, -1, torch.clamp_min(yi, 0)[..., None])[..., 0]
+    return torch.where(valid, lse - tgt, 0.0).sum(), valid.sum()
+
+
+def loss_fn(params, batch, cfg: ModelConfig, seq_chunk: int = 512,
+            remat: bool = True):
+    """Mean next-token cross-entropy + 0.01 aux, the reference's.
+
+    ``batch`` holds ``tokens`` and ``labels`` (B, S) int tensors.  The
+    shifted sequence runs in chunks of ``seq_chunk`` positions (labels
+    padded with -1), each chunk's float32 logits made, reduced and, with
+    ``remat``, recomputed in the backward pass, so at most one chunk's
+    (B, C, V) logits is alive; the per-chunk sums accumulate in order.
+    """
+    tokens, labels = batch["tokens"], batch["labels"]
+    x, aux = forward_train(params, tokens, cfg, remat=remat)
+    x, y = x[:, :-1], labels[:, 1:]
+    b, s = x.shape[:2]
+    seq_chunk = min(seq_chunk, s)
+    pad = -s % seq_chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        y = torch.nn.functional.pad(y, (0, pad), value=-1)
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, s + pad, seq_chunk):
+        xi, yi = x[:, c0:c0 + seq_chunk], y[:, c0:c0 + seq_chunk]
+        nll, n = (checkpoint(_chunk_nll, params, xi, yi, cfg,
+                             use_reentrant=False) if remat
+                  else _chunk_nll(params, xi, yi, cfg))
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp_min(cnt, 1) + 0.01 * aux
 
 
 # --------------------------------------------------------------------- #

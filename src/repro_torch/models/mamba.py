@@ -1,10 +1,13 @@
 """Mamba-1 block (falcon-mamba): gated selective state-space layer.
 
-Mirrors ``repro/models/mamba.py``.  Prefill scans the whole prompt in
-one call of the selective-scan kernel (:mod:`repro_torch.kernels.
-mamba_scan`), which also returns the final state; the reference scans in
-512-step chunks (TPU memory) and gets that state from a second scan.
-Decode is the single-step update in plain PyTorch, as in the reference.
+Mirrors ``repro/models/mamba.py``.  The training form
+(:func:`mamba_block`) is the reference's sequential scan carrying the
+float32 (B, Di, N) state, in plain PyTorch, so autograd differentiates
+it.  Prefill scans the whole prompt in one call
+of the selective-scan kernel (:mod:`repro_torch.kernels.mamba_scan`),
+which also returns the final state; the reference gets that state from
+a second scan.  Decode is the single-step update in plain PyTorch, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -59,8 +62,28 @@ def mamba_prefill(x, p, cfg):
 
 
 def mamba_block(x, p, cfg):
-    """Forward without the state.  x: (B, S, D) -> (B, S, D)."""
-    return mamba_prefill(x, p, cfg)[0]
+    """The training form (no state), the reference's ``mamba_block``.
+    x: (B, S, D) -> (B, S, D).  Each step updates the float32 state
+    ``h = exp(dt A) h + (dt u) B`` and emits ``y = h . C + D u``.  The
+    reference scans in 512-step chunks, the state carried across them,
+    which bounds its scan's memory; one loop over the steps is the same
+    arithmetic."""
+    u, z = (x @ p["in_proj"]).chunk(2, dim=-1)             # (B, S, Di) each
+    u, _ = causal_conv1d(u, p["conv_w"])
+    u = F.silu(u)
+    delta, b_in, c_in = _ssm_inputs(u, p, cfg)
+    A = -torch.exp(p["A_log"])
+    uf, df, bf, cf = (t.float() for t in (u, delta, b_in, c_in))
+    h = uf.new_zeros((x.shape[0], cfg.d_inner, cfg.ssm_state))
+    ys = []
+    for t in range(x.shape[1]):
+        u_t, d_t = uf[:, t], df[:, t]
+        h = torch.exp(d_t[..., None] * A[None]) * h \
+            + (d_t * u_t)[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t])
+                  + p["D"][None] * u_t)
+    y = torch.stack(ys, dim=1).to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"]
 
 
 def init_mamba_state(cfg, batch, device, dtype=torch.float32):

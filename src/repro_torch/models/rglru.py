@@ -8,9 +8,11 @@ multiplicatively, then projected out:
     log a_t = -c * softplus(Lambda) * r_t          (c = 8)
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * y_t)
 
-Prefill runs the recurrence through the RG-LRU kernel
-(:mod:`repro_torch.kernels.rglru_scan`); decode is the single-step
-update in plain PyTorch, as in the reference.
+The training form (:func:`recurrent_block`) runs the recurrence as the
+reference does, an associative scan (:func:`rglru_assoc_scan`, plain
+PyTorch, so autograd differentiates it).  Prefill runs it through the
+RG-LRU kernel (:mod:`repro_torch.kernels.rglru_scan`); decode is the
+single-step update in plain PyTorch, as in the reference.
 """
 
 from __future__ import annotations
@@ -61,9 +63,30 @@ def recurrent_prefill(x, p, cfg):
     return out, {"conv": conv.float(), "h": h[:, -1]}
 
 
+def rglru_assoc_scan(x, a):
+    """Every state h_t of the RG-LRU recurrence, (B, S, W) float32, as a
+    log-depth scan: ``log2 S`` doubling steps of the reference's
+    associative combine ``(a1, b1) o (a2, b2) = (a1 a2, a2 b1 + b2)``
+    (``repro/kernels/rglru_scan/ref.py``), each out of place, so the
+    autograd graph holds O(S log S) elements, not an S-step loop."""
+    a = a.float()
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * x.float()
+    d = 1
+    while d < a.shape[1]:
+        a, b = (torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1),
+                torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1))
+        d *= 2
+    return b
+
+
 def recurrent_block(x, p, cfg):
-    """Forward without the state.  x: (B, S, D) -> (B, S, D)."""
-    return recurrent_prefill(x, p, cfg)[0]
+    """The training form (no state), the reference's ``recurrent_block``.
+    x: (B, S, D) -> (B, S, D)."""
+    gate = gelu((x @ p["in_gate"]).float()).to(x.dtype)
+    z, _ = causal_conv1d(x @ p["in_lin"], p["conv_w"])
+    a, i = _gates(z, p)
+    h = rglru_assoc_scan(i * z.float(), a)                 # (B, S, W) f32
+    return (h.to(x.dtype) * gate) @ p["out_proj"]
 
 
 def init_recurrent_state(cfg, batch, device, dtype=torch.float32):

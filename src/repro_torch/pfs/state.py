@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels.pow_cr.kernel import pow_cr_cuda
 from repro_torch.kernels.segment_reduce.ops import SegmentMap, segment_sum
 
 PAGE_SIZE = 4096  # bytes, Linux page
@@ -277,16 +278,22 @@ class Demand:
 
 
 def _pow(x: torch.Tensor, e: float) -> torch.Tensor:
-    """``x ** e``: numpy's ``power`` on the CPU, ``torch.pow`` on the card.
+    """``x ** e``: numpy's ``power`` on the CPU, the correctly rounded
+    ``pow_cr`` kernel on the card.
 
-    The CPU path is the reference numpy engine's own ``power``:
-    ``torch.pow`` rounds the last bit differently on some inputs, and the
-    congestion factor it computes feeds a near-zero leftover whose sign
-    a last bit can flip.
+    The congestion factor it computes feeds a near-zero leftover whose
+    sign a last bit can flip, so this one operation decides whether two
+    devices agree.  The CPU path is the reference numpy engine's own
+    ``power`` (``torch.pow`` rounds otherwise), so the port's CPU engine
+    equals the reference's on the same host.  On the card ``torch.pow``
+    is off by an ulp on ~23% of inputs; ``pow_cr`` returns the nearest
+    double, as libm's ``pow`` does but within ~0.1% of its inputs.
+    numpy's ``power`` is libm's or, on an AVX-512 host, SVML's (off on
+    ~5% of inputs), which no card kernel reproduces (ROADMAP Queue 3).
     """
     if x.device.type == "cpu":
         return torch.from_numpy(np.power(x.numpy(), e))
-    return torch.pow(x, e)
+    return pow_cr_cuda(x.contiguous(), e)
 
 
 def _div_where(num, den, cond, fallback):

@@ -45,6 +45,15 @@ class Workload:
     period: float = 10.0
     name: str = "workload"
 
+    def bind(self, sim) -> None:
+        """Re-bind to ``sim`` after a change of ``osts`` (issued bytes reset,
+        the new stripe's delivered bytes as the base)."""
+        sim.bind(self)
+
+    def done_bytes(self, sim) -> float:
+        """Bytes the stripe delivered since the workload was (re-)bound."""
+        return sim.done_bytes()[sim.workload_index(self)]
+
 
 # ---------------------------------------------------------------------- #
 # paper workload presets
@@ -432,7 +441,9 @@ class WorkloadTable:
 def table_from_sim(sim):
     """Freeze a sim's attached workloads into ``(table, wstate)``,
     continuing each workload's closed-loop state (issued bytes and the
-    done-bytes base captured at attach)."""
+    done-bytes base captured at attach); the sim's own kept table, if
+    any, is synced back and dropped first."""
+    sim.sync_workloads()
     table = WorkloadTable.from_workloads(sim.workloads, sim.topo)
     wstate = WorkloadState(
         issued=torch.tensor(sim.issued, dtype=F64, device=sim.device),

@@ -747,6 +747,95 @@ def test_smoke_serving_on_card_matches_cpu(cuda, arch):
 
 
 # --------------------------------------------------------------------- #
+# the engine's correctly rounded congestion pow
+# --------------------------------------------------------------------- #
+def test_pow_cr_kernel_matches_plain(cuda):
+    """``pow_cr`` on 100,000 values of the engine's range (and the
+    engine's shape, one per OST) bit-equal to its plain version on the
+    CPU, two launches bit-equal; a tuned fleet tick launches it."""
+    from repro_torch.kernels.pow_cr.kernel import pow_cr_cuda
+    from repro_torch.kernels.pow_cr.ref import pow_cr_ref
+
+    rng = np.random.default_rng(3)
+    for n in (4, 32, 100_000):
+        x = np.exp(rng.uniform(np.log(1e-5), np.log(7e7), n))
+        x[0] = 1.0
+        for e in (0.35, 0.5):
+            got = pow_cr_cuda(torch.as_tensor(x, device=cuda), e)
+            again = pow_cr_cuda(torch.as_tensor(x, device=cuda), e)
+            assert torch.equal(got, again)
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), pow_cr_ref(torch.from_numpy(x), e).numpy())
+    LAUNCHES.clear()
+    sim = _loop_sim(cuda, 8, 4)
+    sim.run(0.05)
+    assert LAUNCHES["pow_cr"] == 10
+
+
+# --------------------------------------------------------------------- #
+# LM training: the kernels refuse gradients; card == CPU
+# --------------------------------------------------------------------- #
+def test_lm_kernels_refuse_grad_on_card(cuda):
+    """A CUDA input that requires a gradient raises (the kernels write
+    through raw pointers and have no backward); under ``no_grad`` the
+    same call launches."""
+    from repro_torch.kernels.rglru_scan.kernel import rglru_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    t = lambda *s: torch.rand(s, generator=g, device=cuda)  # noqa: E731
+    q, k = t(1, 2, 8, 16), t(1, 1, 8, 16)
+    x, a = t(1, 8, 32), t(1, 8, 32)
+    u, dt, A = t(1, 8, 32), t(1, 8, 32), -t(32, 8)
+    bb, cc, dd = t(1, 8, 8), t(1, 8, 8), t(32)
+    calls = {   # the launch counter's name: the call, its grad input
+        "flash_attention": (lambda: flash_attention_cuda(q, k, k), q),
+        "rglru_scan": (lambda: rglru_cuda(x, a), x),
+        "selective_scan": (lambda: selective_scan_cuda(
+            u, dt, A, bb, cc, dd), u)}
+    for name, (call, leaf) in calls.items():
+        leaf.requires_grad_(True)
+        LAUNCHES.clear()
+        with pytest.raises(RuntimeError, match="gradient"):
+            call()
+        assert LAUNCHES[name] == 0
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        assert LAUNCHES[name] == 1
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_loss_and_grads_on_card_match_cpu(cuda, arch):
+    """The same float32 weights and tokens: the loss within 1e-5
+    relative and every gradient leaf within 1e-4 of its largest |value|
+    on the card and the CPU; the training forms launch no LM kernel."""
+    import dataclasses
+
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.randint(0, cfg.vocab_size, (2, 48),
+                        generator=torch.Generator().manual_seed(1))
+    out = {}
+    LAUNCHES.clear()
+    for dev in ("cpu", cuda):
+        p = lm.to_device(params, dev)
+        leaves = tree_leaves(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        t = tok.to(dev)
+        loss = lm.loss_fn(p, {"tokens": t, "labels": t}, cfg, seq_chunk=16)
+        out[str(dev)] = (loss.detach().cpu(), [g.cpu() for g in
+                         torch.autograd.grad(loss, leaves)])
+    assert not any(LAUNCHES[k] for k in ("flash_attention", "rglru_scan",
+                                         "selective_scan"))
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert float(lg) == pytest.approx(float(lc), rel=1e-5)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# --------------------------------------------------------------------- #
 # the fused tuning loop: each interval one CUDA-graph replay
 # --------------------------------------------------------------------- #
 def _loop_sim(device, n_clients, n_osts):

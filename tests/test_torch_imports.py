@@ -41,7 +41,7 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=_env(),
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 58      # every module of the three slices was imported
+    assert int(out[0]) >= 90      # every module of the eleven slices
     assert out[1:] == ["[]"]
 
 
@@ -106,6 +106,21 @@ def test_dial_slice_modules_are_probed():
             "repro_torch.launch.mesh"} <= names
 
 
+def test_lm_training_slice_modules_are_probed():
+    """The walk above reaches the LM training slice's modules."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.steps", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.ckpt",
+            "repro_torch.ckpt.manager", "repro_torch.launch.train",
+            "repro_torch.kernels.pow_cr.kernel",
+            "repro_torch.kernels.pow_cr.ref"} <= names
+
+
 def test_no_jax_or_reference_import_in_sources():
     files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:
@@ -154,6 +169,20 @@ def test_serve_raises_without_cuda():
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "falcon-mamba-7b"], env=_env(), capture_output=True, text=True,
         timeout=120)
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+
+
+def test_train_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    from repro_torch.launch.train import train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train("gemma2-2b", steps=1, dial_model_path=None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "gemma2-2b", "--steps", "1", "--no-dial"], env=_env(),
+        capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "CUDA" in proc.stderr
 
 

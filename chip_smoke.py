@@ -150,6 +150,23 @@ Phases, in order; any failure exits non-zero:
    The full run's launches go into the ``segment_sum``, ``pow_cr`` and
    paired-forest rows; outputs under ``build/train/``.
 
+13. the other seven families, one model at a time: ``serve`` of
+   olmoe-1b-7b, qwen2-moe-a2.7b, musicgen-large (tokens (B, T, 4)),
+   stablelm-12b (head dim 160) and starcoder2-15b at 4 x 3,072 prompt
+   tokens, qwen1.5-32b at 1 x 3,072 and llava-next-34b at 1 x (2,880
+   random image positions + 3,072 tokens) -- batch 4 does not fit
+   beside their ~70 GB of weights -- at their full published configs,
+   bf16, 32 greedy tokens, counters zeroed just before each and read
+   just after (flash_attention must launch in each; the MoE models'
+   share of routed assignments dropped at prefill, by layer); the
+   device breakdown of olmoe-1b-7b and stablelm-12b; one full-width
+   MoE layer of each MoE family at 1 x 512 tokens on the card and the
+   CPU (tokens routed otherwise counted, the groups routed alike
+   within the bf16 bar); the seven smoke configs in float32 card vs
+   CPU (greedy tokens identical, logits within 1e-4; the loss, every
+   gradient and one AdamW step within 1e-4); an MoE smoke config served
+   twice on the card, bit-equal.
+
 It prints one JSON line of kernel results, the ``nvidia-smi`` name and
 power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Without a CUDA
@@ -1272,7 +1289,7 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 # costs ~1e-2 of it; a key split or tile dropped or added, ~1e-1 and more.
 BF16_ROW_REL = 5e-2
 # each new kernel: the layer kinds that run it
-SERVE_KERNELS = {"flash_attention": {"attn", "attn_local"},
+SERVE_KERNELS = {"flash_attention": {"attn", "attn_local", "moe"},
                  "rglru_scan": {"recurrent"}, "selective_scan": {"mamba"}}
 
 
@@ -1443,12 +1460,17 @@ def _close_rows(got, want, rel: float) -> float:
 
 def check_flash_attention(dev) -> dict:
     """The attention kernel at one layer's prefill shapes of the serve
-    runs (recurrentgemma-9b: the headline; gemma2-2b local and global)
-    and at decode (Sq = 1 on a cache view), in bf16 and float32 (each
-    shape through the form the wrapper picks for it), against the plain
-    version, timed beside SDPA where it applies (no softcap).  bf16 is
-    held at atol 3e-2 and, so that a dropped or doubled key split or tile
-    shows, each row within BF16_ROW_REL of its RMS."""
+    runs (recurrentgemma-9b: the headline; gemma2-2b local and global;
+    then each head layout phase 13 serves: stablelm-12b at D = 160, the
+    MHA of olmoe-1b-7b / qwen2-moe-a2.7b, qwen1.5-32b and musicgen-large
+    (D = 64), and the GQA groups of 12 of starcoder2-15b and of 7 of
+    llava-next-34b over its image prefix) and at the decode step after
+    each (Sq = 1 on a cache view), at the batch phases 8 and 13 serve,
+    in bf16 and float32 (each shape through the form the wrapper picks
+    for it), against the plain version, timed beside SDPA where it
+    applies (no softcap).  bf16 is held at atol 3e-2 and, so that a
+    dropped or doubled key split or tile shows, each row within
+    BF16_ROW_REL of its RMS."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
@@ -1456,19 +1478,34 @@ def check_flash_attention(dev) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     b, s = SERVE["batch"], SERVE["prompt_len"]
-    smax = s + SERVE["gen_tokens"]
-    cur = smax - 1       # the last decode step's position
-    shapes = [("recurrentgemma-9b prefill", 16, 1, s, s, 2048, 0.0),
-              ("gemma2-2b local prefill", 8, 4, s, s, 4096, 50.0),
-              ("gemma2-2b global prefill", 8, 4, s, s, None, 50.0),
-              ("recurrentgemma-9b decode", 16, 1, 1, min(cur + 1, 2048),
-               2048, 0.0),
-              ("gemma2-2b global decode", 8, 4, 1, cur + 1, None, 50.0)]
+    img = 2880           # llava-next-34b's image positions before its text
+    # (what, batch, Hq, Hkv, prompt positions, decode, window, softcap, D);
+    # a decode step is the last of the serve run's, on a cache of the
+    # prompt and the generated tokens
+    shapes = [("recurrentgemma-9b prefill", b, 16, 1, s, False, 2048, 0.0,
+               256),
+              ("gemma2-2b local prefill", b, 8, 4, s, False, 4096, 50.0, 256),
+              ("gemma2-2b global prefill", b, 8, 4, s, False, None, 50.0,
+               256),
+              ("recurrentgemma-9b decode", b, 16, 1, s, True, 2048, 0.0, 256),
+              ("gemma2-2b global decode", b, 8, 4, s, True, None, 50.0, 256)]
+    for what, bf, hq, hkv, sp, d in (
+            ("stablelm-12b", b, 32, 8, s, 160),
+            ("olmoe-1b-7b / qwen2-moe-a2.7b", b, 16, 16, s, 128),
+            ("qwen1.5-32b", 1, 40, 40, s, 128),
+            ("musicgen-large", b, 32, 32, s, 64),
+            ("starcoder2-15b", b, 48, 4, s, 128),
+            ("llava-next-34b", 1, 56, 8, img + s, 128)):
+        shapes += [(f"{what} prefill", bf, hq, hkv, sp, False, None, 0.0, d),
+                   (f"{what} decode", bf, hq, hkv, sp, True, None, 0.0, d)]
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     cases = []
-    for what, hq, hkv, sq, skv, window, cap in shapes:
-        d = 256
+    for what, b, hq, hkv, sp, decode, window, cap, d in shapes:
+        smax = sp + SERVE["gen_tokens"]
+        cur = smax - 1       # the last decode step's position
+        sq = 1 if decode else sp
+        skv = min(cur + 1, window or smax) if decode else sp
         q = torch.randn((b, sq, hq, d), generator=g, device=dev,
                         dtype=torch.bfloat16).transpose(1, 2)
         if sq == 1:       # the live slice of a (B, Hkv, Smax, D) cache
@@ -2882,6 +2919,9 @@ TRAIN_SMOKE = dict(steps=3, batch=4, seq_len=64, n_hosts=4,
 TRAIN_SMOKE_EPS = 1e-3
 BF16_OPS_PER_S = 989e12                   # H100 SXM bf16 dense
 LM_KERNELS = ("flash_attention", "rglru_scan", "selective_scan")
+# the families whose smoke training runs through the DIAL pipeline here;
+# phase 13 holds the other seven's training steps card vs CPU
+TRAIN_SMOKE_ARCHS = ("gemma2-2b", "recurrentgemma-9b", "falcon-mamba-7b")
 CHECK_SCENARIO = "degraded_ost"           # ROADMAP Queue 3: pow_cr
 
 
@@ -3041,12 +3081,12 @@ def train_card_vs_cpu(model, model_cpu, card: str) -> dict:
 
     import torch
 
-    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.configs import get_smoke_config
     from repro_torch.convert import lm_params_to_numpy
     from repro_torch.models import lm
 
     out = {}
-    for arch in ARCHS:
+    for arch in TRAIN_SMOKE_ARCHS:
         cfg = dc.replace(get_smoke_config(arch), param_dtype="float32")
         tree = lm_params_to_numpy(cfg, lm.init_params(
             cfg, torch.Generator().manual_seed(0), "cpu"))
@@ -3264,6 +3304,324 @@ def train_phase(model, dev, kernels: list, card: str) -> None:
     log(f"{card} | phase 12: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------- #
+# phase 13: the other seven families (MoE, codebooks, image prefix)
+# ---------------------------------------------------------------------- #
+FAMILY_ARCHS = ("olmoe-1b-7b", "qwen2-moe-a2.7b", "musicgen-large",
+                "stablelm-12b", "starcoder2-15b", "qwen1.5-32b",
+                "llava-next-34b")
+MOE_ARCHS = ("olmoe-1b-7b", "qwen2-moe-a2.7b")
+# batch 1 where batch 4 does not fit the card: qwen1.5-32b's 70.4 GB of
+# bf16 weights and llava-next-34b's 68.8 GB leave no room for batch 4's
+# caches (qwen1.5-32b's MHA cache alone 16.3 GB)
+FAMILY_BATCH = {"qwen1.5-32b": 1, "llava-next-34b": 1}
+MOE_LAYER_TOKENS = 512
+# bf16 layer outputs, card vs the CPU's plain path: test_torch_lm.py's
+# bar for bf16 states
+BF16_ATOL, BF16_RTOL = 0.05, 0.02
+
+
+def _moe_spy():
+    """Record, without a host sync, each ``route`` call's token count and
+    its kept and routed assignments; returns (records, undo)."""
+    from repro_torch.models import moe
+
+    records, route = [], moe.route
+
+    def spy(xt, *a, **k):
+        r = route(xt, *a, **k)
+        records.append((xt.shape[0] * xt.shape[1], r["keep"].sum(),
+                        r["keep"].numel()))
+        return r
+
+    moe.route = spy
+    return records, lambda: setattr(moe, "route", route)
+
+
+def family_serving(seed: int, dev, card: str) -> dict:
+    """Full-config ``serve`` of each of the seven families, one at a time,
+    launches counted per run; an MoE model's share of routed assignments
+    dropped at prefill."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+
+    runs = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        b = FAMILY_BATCH.get(arch, SERVE["batch"])
+        n = SERVE["gen_tokens"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        records, undo = _moe_spy() if cfg.n_experts else ([], lambda: None)
+        try:
+            out, secs, counts = counted(lambda: serve(
+                arch, smoke=False, seed=seed, device=dev, batch=b,
+                prompt_len=SERVE["prompt_len"], gen_tokens=n))
+        finally:
+            undo()
+        peak = torch.cuda.max_memory_allocated(dev)
+        toks = out["tokens"]
+        cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+        if toks.shape != (b, n) + cb or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"serve {arch}: tokens malformed "
+                                 f"{toks.shape}")
+        for key in ("prefill_logits", "logits"):
+            lg = out[key]
+            if tuple(lg.shape) != (b, 1) + cb + (cfg.vocab_size,) \
+                    or not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"serve {arch}: {key} not finite or "
+                                     "malformed")
+        if counts.get("flash_attention", 0) <= 0:
+            raise AssertionError(f"serve {arch} never launched "
+                                 "flash_attention")
+        prompt = b * SERVE["prompt_len"]
+        drop, drop_by_layer = None, None
+        if records:
+            t_pre = b * (SERVE["prompt_len"] + cfg.img_tokens)
+            pre = [(int(k), m) for t, k, m in records if t == t_pre]
+            drop = 1.0 - sum(k for k, _ in pre) / sum(m for _, m in pre)
+            drop_by_layer = [1.0 - k / m for k, m in pre]
+        runs[arch] = dict(
+            params=cfg.param_count(), layers=cfg.n_layers, batch=b,
+            img_tokens=cfg.img_tokens, wall_s=secs,
+            prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+            tok_per_s=out["tok_per_s"],
+            ms_per_step=out["decode_s"] / (n - 1) * 1e3,
+            peak_gib=peak / 2 ** 30, launches=counts,
+            moe_prefill_drop_share=drop,
+            moe_prefill_drop_by_layer=drop_by_layer,
+            first_tokens=toks[0, :8].tolist())
+        log(f"{card} | serve {arch} (full config: {cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.2f} B params, "
+            f"bf16): {b} x {SERVE['prompt_len']} prompt tokens"
+            + (f" after {cfg.img_tokens} image positions"
+               if cfg.img_tokens else "")
+            + (f" x {cfg.num_codebooks} codebooks" if cb else "")
+            + f", {n} greedy tokens each; prefill {out['prefill_s']:.3f} s "
+            f"({prompt / out['prefill_s']:.0f} tok/s), decode "
+            f"{out['decode_s']:.3f} s for {n - 1} steps "
+            f"({out['tok_per_s']:.1f} tok/s, "
+            f"{runs[arch]['ms_per_step']:.2f} ms/step); peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; logits finite; launches "
+            + ", ".join(f"{k}={v}" for k, v in sorted(counts.items()))
+            + (f"; routed assignments dropped at prefill {drop:.4%} (by "
+               "layer " + ", ".join(f"{x:.1%}" for x in drop_by_layer) + ")"
+               if drop is not None else "") + f"; {secs:.1f} s in all")
+        del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def moe_layer_check(seed: int, dev, card: str) -> dict:
+    """One full-width MoE layer of each MoE family at 1 x 512 tokens, bf16,
+    on the card and through the CPU's plain path on the same weights and
+    input: the tokens routed otherwise (near-ties of float32
+    probabilities computed by two libraries), and every token of a group
+    routed alike within the bf16 bar."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        p = moe.init_moe(cfg, gen, dev, torch.bfloat16)
+        if "shared_gate" in p:      # zeros at init: make the gate matter
+            p["shared_gate"] = (torch.randn(cfg.d_model, generator=gen,
+                                            device=dev) * 0.05).bfloat16()
+        x = torch.randn((1, MOE_LAYER_TOKENS, cfg.d_model), generator=gen,
+                        device=dev).bfloat16()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got, aux = moe.moe_mlp(x, p, cfg)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            pc = {k: (v.cpu() if torch.is_tensor(v) else
+                      {kk: vv.cpu() for kk, vv in v.items()})
+                  for k, v in p.items()}
+            t0 = time.perf_counter()
+            want, aux_cpu = moe.moe_mlp(x.cpu(), pc, cfg)
+            t_cpu = time.perf_counter() - t0
+            g = moe.n_groups(cfg, MOE_LAYER_TOKENS)
+            tl = MOE_LAYER_TOKENS // g
+            cap = int(moe.CAPACITY_FACTOR * cfg.top_k * tl
+                      / cfg.n_experts) + 1
+            routes = [moe.route(xx.reshape(g, tl, -1), pp["router"],
+                                cfg.top_k, cfg.n_experts, cap)
+                      for xx, pp in ((x, p), (x.cpu(), pc))]
+        idx = [r["idx"].cpu() for r in routes]
+        diff_tok = (idx[0] != idx[1]).any(-1)          # (g, tl)
+        same_group = ~diff_tok.any(-1)                  # (g,)
+        rows = same_group[:, None].expand(g, tl).reshape(-1)
+        err = _close(got.cpu()[0][rows], want[0][rows], BF16_ATOL, BF16_RTOL)
+        aux_err = abs(float(aux) - float(aux_cpu))
+        if aux_err > 1e-3:
+            raise AssertionError(f"MoE layer {arch}: aux {float(aux)} vs "
+                                 f"{float(aux_cpu)}")
+        out[arch] = dict(tokens=MOE_LAYER_TOKENS, groups=g, capacity=cap,
+                         routed_otherwise=int(diff_tok.sum()),
+                         groups_compared=int(same_group.sum()),
+                         max_abs_err=err, aux_err=aux_err, card_s=t_card,
+                         cpu_s=t_cpu)
+        log(f"{card} | MoE layer {arch} (full width, bf16, 1 x "
+            f"{MOE_LAYER_TOKENS} tokens, {g} groups, capacity {cap}): "
+            f"{int(diff_tok.sum())} token(s) routed otherwise on the card "
+            f"than on the CPU; the {int(same_group.sum())} groups routed "
+            f"alike within |diff| {err:.3e} (bar {BF16_ATOL} + "
+            f"{BF16_RTOL} |x|); aux {float(aux):.6f} vs {float(aux_cpu):.6f}"
+            f"; card {t_card:.3f} s, CPU {t_cpu:.3f} s")
+        del p, pc, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def _family_inputs(cfg, b, s, gen):
+    """Tokens (B, S[, K]) and, for a VLM, float32 image embeddings."""
+    import torch
+    shape = (b, s) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
+    tok = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+    img = (torch.randn((b, cfg.img_tokens, cfg.d_model), generator=gen)
+           if cfg.family == "vlm" else None)
+    return tok, img
+
+
+def family_smoke_card_vs_cpu(card: str) -> dict:
+    """The seven smoke configs in float32 on the card and the CPU from the
+    same weights and inputs: ``generate``'s greedy tokens identical and
+    logits within 1e-4; the loss and every gradient leaf (within 1e-4 of
+    its largest |value|; an MoE backward sums with atomics on the card)
+    and one AdamW step (parameters within 1e-4 of the largest |leaf|)."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
+                                             tree_leaves, tree_map)
+    from repro_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda")
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = dc.replace(get_smoke_config(arch), param_dtype="float32")
+        gen = torch.Generator().manual_seed(0)
+        params = lm.init_params(cfg, gen, "cpu")
+        prompts, img = _family_inputs(cfg, 4, 48, gen)
+        max_len = 64 + cfg.img_tokens
+        res = {}
+        for where in ("cpu", dev):
+            res[str(where)] = generate(
+                lm.to_device(params, where), prompts.to(where), cfg, 16,
+                max_len, img_embeds=None if img is None else img.to(where))
+        cpu, crd = res["cpu"], res[str(dev)]
+        if not np.array_equal(crd["tokens"], cpu["tokens"]):
+            raise AssertionError(f"smoke {arch}: greedy tokens differ, card "
+                                 "vs CPU")
+        lg_err = max(float((crd[k].cpu() - cpu[k]).abs().max())
+                     for k in ("prefill_logits", "logits"))
+        if not lg_err <= 1e-4:
+            raise AssertionError(f"smoke {arch}: logits differ by {lg_err}")
+        tok, timg = _family_inputs(cfg, 4, 64, torch.Generator().manual_seed(1))
+        batch = {"tokens": tok, "labels": tok}
+        if timg is not None:
+            batch["img_embeds"] = timg
+        ocfg = AdamWConfig(peak_lr=1e-2, min_lr=1e-3, warmup_steps=1,
+                           total_steps=4, eps=TRAIN_SMOKE_EPS)
+        tr = {}
+        for where in ("cpu", dev):       # the step updates p in place
+            p = tree_map(lambda t: t.to(where, copy=True), params)
+            leaves = tree_leaves(p)
+            for x in leaves:
+                x.requires_grad_(True)
+            b = {k: v.to(where) for k, v in batch.items()}
+            loss = lm.loss_fn(p, b, cfg, seq_chunk=32)
+            grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+            for x in leaves:
+                x.requires_grad_(False)
+            p, _, m = make_train_step(cfg, ocfg)(p, init_opt_state(p), b)
+            tr[str(where)] = (float(loss.detach()), grads, float(m["loss"]),
+                              [x.cpu() for x in tree_leaves(p)])
+        (lc, gc_, mc, pc), (lg, gg, mg, pg) = tr["cpu"], tr[str(dev)]
+        grad_rel = max(float((a - b_).abs().max())
+                       / max(float(b_.abs().max()), 1e-30)
+                       for a, b_ in zip(gg, gc_))
+        scale = max(float(b_.abs().max()) for b_ in pc)
+        param_rel = max(float((a - b_).abs().max()) for a, b_ in zip(pg, pc)) \
+            / scale
+        loss_rel = abs(lg - lc) / abs(lc)
+        if not (loss_rel <= 1e-4 and grad_rel <= 1e-4 and param_rel <= 1e-4
+                and abs(mg - mc) / abs(mc) <= 1e-4):
+            raise AssertionError(f"train card vs CPU ({arch}): loss "
+                                 f"{lg} vs {lc}, gradients {grad_rel}, "
+                                 f"parameters {param_rel}")
+        out[arch] = dict(logits_err=lg_err, loss_rel=loss_rel,
+                         grad_rel=grad_rel, param_rel=param_rel)
+        log(f"{card} | smoke {arch} (float32) card == CPU: 4 x 16 greedy "
+            f"tokens identical, logits within {lg_err:.3e}; loss "
+            f"{lg:.6f} vs {lc:.6f} (relative {loss_rel:.3g}), gradients "
+            f"within {grad_rel:.3g} of a leaf's largest |value|, one AdamW "
+            f"step's parameters within {param_rel:.3g} of the largest |leaf|")
+    return out
+
+
+def family_phase(seed: int, dev, kernels: list, card: str) -> None:
+    """Phase 13, the seven other families: full-width serving, a device
+    breakdown of olmoe-1b-7b and stablelm-12b, one full-width MoE layer
+    card vs CPU, the smoke configs card vs CPU (serving and training), an
+    MoE smoke config served twice.  Launches go into the attention row
+    under each family's path."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{card} | phase 13 starts with "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated")
+    runs = family_serving(seed, dev, card)
+    by_name = {k["name"]: k for k in kernels}
+    attn = by_name["flash_attention"]
+    for arch, r in runs.items():
+        add_path(attn, f"serve {arch}", r["launches"].get("flash_attention",
+                                                          0))
+    breakdown = {a: serving_breakdown(a, seed, dev)
+                 for a in ("olmoe-1b-7b", "stablelm-12b")}
+    torch.cuda.empty_cache()
+    layers = moe_layer_check(seed, dev, card)
+    smoke = family_smoke_card_vs_cpu(card)
+    repeat = {}
+    for arch in MOE_ARCHS:
+        cfg = get_smoke_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = lm.init_params(cfg, gen, dev)
+        prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                                device=dev)
+        a, b = (generate(params, prompts, cfg, 16, 80) for _ in range(2))
+        if not (np.array_equal(a["tokens"], b["tokens"])
+                and torch.equal(a["logits"], b["logits"])):
+            raise AssertionError(f"{arch} smoke on the card: two runs differ")
+        repeat[arch] = True
+        log(f"{card} | {arch} smoke (bf16) served twice on the card: tokens "
+            "and logits bit-equal")
+    attn["families"] = dict(serve=runs, breakdown=breakdown, moe_layer=layers,
+                            smoke_card_vs_cpu=smoke, moe_repeat=repeat,
+                            phase_s=time.perf_counter() - t_phase)
+    log(f"{card} | phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3297,6 +3655,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
+    t_start = time.perf_counter()
     kernels, model = run_phases(args.seed, args.model, torch.device("cuda"))
     kernels += serving_phase(args.seed, torch.device("cuda"))
     torch.cuda.empty_cache()
@@ -3309,6 +3668,9 @@ def main(argv=None) -> int:
                cut_report)
     torch.cuda.empty_cache()
     train_phase(model, torch.device("cuda"), kernels, smi)
+    log(f"{smi} | the phases before 13: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    family_phase(args.seed, torch.device("cuda"), kernels, smi)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

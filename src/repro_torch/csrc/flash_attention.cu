@@ -46,6 +46,8 @@
 //    32-key tiles staged in shared memory (rows padded to D + 1 words);
 //    each group of 8 lanes owns 2 query rows.  Tensor cores would mean
 //    TF32, which cannot hold the float32 bar of 2e-5.
+//
+// Head dims: 8 (float32 form only), 16, 32, 64, 128, 160 and 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -771,12 +773,31 @@ int launch_decode_mma(const DecodeArgs& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the bf16 forms' head dims: multiples of 16 (the mma k-step); 160 is
+// stablelm-12b's (10 k-steps, 20 16-byte chunks a row, 336-byte padded
+// shared rows; 105 KB of shared memory in the prefill form, 54 KB in
+// decode, 640 combine threads)
 #define REPRO_BY_DIM(CALL)                        \
   switch (d) {                                    \
     case 16: return CALL(16);                     \
     case 32: return CALL(32);                     \
     case 64: return CALL(64);                     \
     case 128: return CALL(128);                   \
+    case 160: return CALL(160);                   \
+    case 256: return CALL(256);                   \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+// the float32 form's: also D = 8 (the smoke configs of starcoder2-15b
+// and llava-next-34b), one output column a lane
+#define REPRO_BY_DIM_F32(CALL)                    \
+  switch (d) {                                    \
+    case 8: return CALL(8);                       \
+    case 16: return CALL(16);                     \
+    case 32: return CALL(32);                     \
+    case 64: return CALL(64);                     \
+    case 128: return CALL(128);                   \
+    case 160: return CALL(160);                   \
     case 256: return CALL(256);                   \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
@@ -829,7 +850,7 @@ extern "C" int flash_attention_fwd(int form, const void* q, const void* k,
   a.o_ss = strides[11];
   if (form == 0) {
 #define REPRO_F32(D) launch_f32<D>(a, batch, stream)
-    REPRO_BY_DIM(REPRO_F32)
+    REPRO_BY_DIM_F32(REPRO_F32)
 #undef REPRO_F32
   }
   if (form == 1) {

@@ -5,6 +5,10 @@ the dtype: ``decode`` (bf16, Sq = 1: split-KV partials and an ordered
 combine), ``mma`` (bf16 prefill on tensor cores) and ``cuda_core``
 (float32, any Sq).  ``LAUNCHES["flash_attention"]`` counts one per call; the
 decode form's combine launch counts under ``flash_attention_combine``.
+A bf16 head dim of 8 (the smoke configs of starcoder2-15b and
+llava-next-34b) runs the D = 16 instantiation on q, k and v padded with
+zero columns, which add nothing to q.k and give zero output columns; the
+scale stays D's.
 """
 
 from __future__ import annotations
@@ -12,11 +16,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import _build
 from repro_torch.kernels import LAUNCHES, refuse_grad
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiations
+HEAD_DIMS = (8, 16, 32, 64, 128, 160, 256)   # the float32 form's
+MMA_HEAD_DIMS = (16, 32, 64, 128, 160, 256)  # the bf16 forms' (k-steps of 16)
 DECODE_KEYS = 64    # the decode form's largest split (keys staged per block)
 DECODE_HEADS = 16   # q-heads of one GQA group per decode block
 MIN_SPLIT = 16      # the decode form's smallest split, but for the last
@@ -124,14 +130,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_cuda: the head axis must be "
                          "contiguous")
     form = attention_form(sq, q.dtype)
+    scale = float(d ** -0.5)
+    if form != "cuda_core" and d not in MMA_HEAD_DIMS:
+        widen = lambda t: F.pad(t, (0, 16 - d))  # noqa: E731
+        return _launch(form, widen(q), widen(k), widen(v), causal, window,
+                       softcap, scale)[..., :d]
     if form != "cuda_core" and not _aligned(q, k, v):
         raise ValueError("flash_attention_cuda: q/k/v rows must start on "
                          "16-byte boundaries (decode and bf16 forms)")
+    return _launch(form, q, k, v, causal, window, softcap, scale)
+
+
+def _launch(form, q, k, v, causal, window, softcap, scale):
+    dev = q.device
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     window = int(window or 0)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                       device=dev).transpose(1, 2)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scale = float(d ** -0.5)
     if form == "decode":
         k_begin = max(0, skv - window) if window > 0 else 0
         rows = b * hkv * -(-(hq // hkv) // DECODE_HEADS)

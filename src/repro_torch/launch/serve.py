@@ -3,10 +3,13 @@ greedily, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b [--full]
 
-Mirrors ``repro/launch/serve.py`` for the families the port carries
+Mirrors ``repro/launch/serve.py`` for all ten families
 (:data:`repro_torch.configs.ARCHS`).  Weights are random, drawn with the
 reference's init formulas from a ``torch.Generator`` seeded by ``seed``
-(other numbers than JAX's from the same seed).
+(other numbers than JAX's from the same seed).  A codebook model
+(musicgen-large) takes prompts (B, S, K) and decodes tokens (B, T, K); a
+VLM (llava-next-34b) gets random bf16 image embeddings (B, img_tokens,
+D) before its prompt, as the reference's vision-tower stub.
 """
 
 from __future__ import annotations
@@ -21,14 +24,17 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.models import lm
 
 
-def generate(params, prompts, cfg, gen_tokens: int, max_len: int) -> dict:
-    """Prefill ``prompts`` (B, S) and decode ``gen_tokens`` greedy tokens
-    (the first from the prefill logits), on the prompts' device.
+def generate(params, prompts, cfg, gen_tokens: int, max_len: int,
+             img_embeds=None) -> dict:
+    """Prefill ``prompts`` (B, S[, K]) after ``img_embeds`` (B, I, D), if
+    given, and decode ``gen_tokens`` greedy tokens (the first from the
+    prefill logits), on the prompts' device; the first decode position
+    is I + S.
 
-    Returns ``tokens`` (B, gen_tokens) int64 on the host, ``prefill_s``
-    and ``decode_s`` (host clock, the device synchronized before each
-    reading), and the float32 ``prefill_logits`` (B, 1, V) and last
-    decode ``logits``.
+    Returns ``tokens`` (B, gen_tokens[, K]) int64 on the host,
+    ``prefill_s`` and ``decode_s`` (host clock, the device synchronized
+    before each reading), and the float32 ``prefill_logits`` (B, 1, [K,]
+    V) and last decode ``logits``.
     """
     dev = prompts.device
 
@@ -39,11 +45,13 @@ def generate(params, prompts, cfg, gen_tokens: int, max_len: int) -> dict:
 
     with torch.inference_mode():
         t0 = clock()
-        logits, cache = lm.prefill(params, prompts, cfg, max_len)
+        logits, cache = lm.prefill(params, prompts, cfg, max_len,
+                                   img_embeds=img_embeds)
         prefill_s = clock() - t0
         prefill_logits = logits
-        cur = prompts.shape[1]
-        tok = logits.argmax(dim=-1)                        # (B, 1)
+        cur = prompts.shape[1] + (0 if img_embeds is None
+                                  else img_embeds.shape[1])
+        tok = logits.argmax(dim=-1)                        # (B, 1[, K])
         out = [tok]
         t0 = clock()
         for i in range(gen_tokens - 1):
@@ -61,7 +69,8 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
           greedy: bool = True, device=None) -> dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen_tokens`` each; ``device=None`` is the card.  Returns
-    :func:`generate`'s dict plus ``tok_per_s`` (decode tokens per second)."""
+    :func:`generate`'s dict plus ``tok_per_s`` (decode steps x batch per
+    second)."""
     if not greedy:
         raise NotImplementedError("only greedy decoding is served")
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
@@ -69,9 +78,17 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = lm.init_params(cfg, gen, dev)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                            generator=gen, device=dev)
-    out = generate(params, prompts, cfg, gen_tokens, prompt_len + gen_tokens)
+    max_len = prompt_len + gen_tokens + (cfg.img_tokens or 0)
+    shape = (batch, prompt_len) + ((cfg.num_codebooks,)
+                                   if cfg.num_codebooks else ())
+    prompts = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                            device=dev)
+    img = None
+    if cfg.family == "vlm":
+        img = torch.randn((batch, cfg.img_tokens, cfg.d_model),
+                          generator=gen, device=dev, dtype=torch.bfloat16)
+    out = generate(params, prompts, cfg, gen_tokens, max_len,
+                   img_embeds=img)
     out["tok_per_s"] = batch * (gen_tokens - 1) / max(out["decode_s"], 1e-9)
     return out
 

@@ -2,8 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b [--full] [--steps 6 --batch 4 --seq-len 2048]
 
-Mirrors ``repro/launch/train.py``: the model (a ported family, full or
-smoke config), AdamW, the DIAL-tuned data pipeline through the
+Mirrors ``repro/launch/train.py``: the model (any of the ten families,
+full or smoke config; a VLM fed zero image embeddings, as the
+reference's), AdamW, the DIAL-tuned data pipeline through the
 simulated PFS, the checkpoint manager (save/restore through the PFS
 write path) and resume.  Parameters are random, drawn with the
 reference's init formulas from a ``torch.Generator`` seeded by ``seed``;
@@ -106,12 +107,18 @@ def train(arch: str, steps: int = 50, smoke: bool = True,
 
     losses, records = [], []
     t0 = time.time()
+    img = None
+    if cfg.family == "vlm":      # the vision tower's stub: zero embeddings
+        img = torch.zeros((batch, cfg.img_tokens, cfg.d_model),
+                          dtype=torch.bfloat16, device=dev)
     for step in range(start, steps):
         t_a = clock()
         np_batch = pipe.next_batch()
         t_b = clock()
         tbatch = {k: torch.as_tensor(v, device=dev).long()
                   for k, v in np_batch.items()}
+        if img is not None:
+            tbatch["img_embeds"] = img
         params, opt_state, metrics = step_fn(params, opt_state, tbatch)
         losses.append(float(metrics["loss"]))
         t_c = clock()

@@ -19,10 +19,30 @@ def dtype_of(cfg) -> torch.dtype:
 def init_normal(gen, device, dtype):
     """``normal(shape, std)``: standard normals from ``gen`` (float32),
     times ``std``, cast to ``dtype`` -- the reference's init formula."""
-    def normal(shape, std):
-        return (torch.randn(shape, generator=gen, device=device)
-                * std).to(dtype)
+    def normal(shape, std):   # scaled in place: one float32 buffer
+        return torch.randn(shape, generator=gen, device=device).mul_(
+            std).to(dtype)
     return normal
+
+
+def init_norm(cfg, device, dtype):
+    d = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def init_mlp(cfg, gen, device, dtype, d_ff: int | None = None):
+    """The (gated) MLP's weights; ``d_ff`` overrides ``cfg.d_ff``
+    (Qwen2-MoE's shared experts are one MLP of ``n_shared * d_expert``)."""
+    d = cfg.d_model
+    f = d_ff if d_ff is not None else cfg.d_ff
+    normal = init_normal(gen, device, dtype)
+    p = {"up": normal((d, f), d ** -0.5), "down": normal((f, d), f ** -0.5)}
+    if cfg.mlp_gated:
+        p["gate"] = normal((d, f), d ** -0.5)
+    return p
 
 
 def rms_norm(x, scale, eps: float):

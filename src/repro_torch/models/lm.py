@@ -1,5 +1,7 @@
-"""The decoder-only LM: dense (gemma2), hybrid (recurrentgemma) and SSM
-(falcon-mamba) stacks, for training and serving.
+"""The decoder-only LM of every assigned family: dense (gemma2, stablelm,
+starcoder2, qwen1.5), MoE (olmoe, qwen2-moe), hybrid (recurrentgemma),
+SSM (falcon-mamba), audio over four codebooks (musicgen) and an
+image-prefix VLM (llava-next), for training and serving.
 
 Mirrors ``repro/models/lm.py``.  The reference scans
 ``layer_pattern * n_rep`` with stacked parameters and unrolls the tail;
@@ -16,12 +18,13 @@ Entry points:
                                        the plain training forms (autograd)
     loss_fn                            sequence-chunked cross-entropy (never
                                        materializes the full (B, S, V)
-                                       logits)
+                                       logits) + 0.01 x the MoE aux loss
     prefill                            prompt -> last logits + cache
     decode_step                        one cached token per sequence
 
-Not ported yet (ROADMAP Queue 1 #12b): MoE layers, multi-codebook audio
-and image-prefix embeddings.
+A codebook model (``num_codebooks`` K) takes tokens (B, S, K) and gives
+logits (B, S, K, V); a VLM takes ``img_embeds`` (B, img_tokens, D),
+prepended to the text.
 """
 
 from __future__ import annotations
@@ -31,62 +34,37 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rgl
 from repro_torch.models.config import (ATTN, ATTN_LOCAL, MAMBA, MOE,
                                        RECURRENT, ModelConfig)
-from repro_torch.models.layers import apply_norm, dtype_of, init_normal, mlp
+from repro_torch.models.layers import (apply_norm, dtype_of, init_mlp,
+                                       init_norm, init_normal, mlp)
 
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 #12b: MoE and the "
-        "other architectures)")
-
-
-def _check_config(cfg: ModelConfig):
-    if MOE in cfg.layer_types():
-        raise _unported("the MoE layer")
-    if cfg.num_codebooks:
-        raise _unported("multi-codebook embedding")
-    if cfg.img_tokens:
-        raise _unported("the image-prefix embedding")
+ATTENTION_KINDS = (ATTN, ATTN_LOCAL, MOE)
 
 
 # --------------------------------------------------------------------- #
 # parameters
 # --------------------------------------------------------------------- #
-def _init_norm(cfg, device, dtype):
-    d = cfg.d_model
-    if cfg.norm == "layernorm":
-        return {"scale": torch.ones((d,), dtype=dtype, device=device),
-                "bias": torch.zeros((d,), dtype=dtype, device=device)}
-    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
-
-
-def _init_mlp(cfg, gen, device, dtype):
-    d, f = cfg.d_model, cfg.d_ff
-    normal = init_normal(gen, device, dtype)
-
-    p = {"up": normal((d, f), d ** -0.5), "down": normal((f, d), f ** -0.5)}
-    if cfg.mlp_gated:
-        p["gate"] = normal((d, f), d ** -0.5)
-    return p
-
-
 def init_layer(cfg: ModelConfig, kind: str, gen, device, dtype):
-    norm = lambda: _init_norm(cfg, device, dtype)      # noqa: E731
-    if kind in (ATTN, ATTN_LOCAL):
+    norm = lambda: init_norm(cfg, device, dtype)       # noqa: E731
+    if kind in ATTENTION_KINDS:
         p = {"norm1": norm(),
              "attn": attn.init_attention(cfg, gen, device, dtype),
-             "norm2": norm(), "mlp": _init_mlp(cfg, gen, device, dtype)}
+             "norm2": norm()}
+        if kind == MOE:
+            p["moe"] = moe_mod.init_moe(cfg, gen, device, dtype)
+        else:
+            p["mlp"] = init_mlp(cfg, gen, device, dtype)
     elif kind == MAMBA:
         p = {"norm1": norm(), "mamba": mam.init_mamba(cfg, gen, device, dtype)}
     elif kind == RECURRENT:
         p = {"norm1": norm(),
              "rec": rgl.init_recurrent(cfg, gen, device, dtype),
-             "norm2": norm(), "mlp": _init_mlp(cfg, gen, device, dtype)}
+             "norm2": norm(), "mlp": init_mlp(cfg, gen, device, dtype)}
     else:
-        raise _unported(f"layer kind {kind!r}")
+        raise ValueError(kind)
     if cfg.use_post_norm:
         p["post_norm1"] = norm()
         p["post_norm2"] = norm()
@@ -96,16 +74,16 @@ def init_layer(cfg: ModelConfig, kind: str, gen, device, dtype):
 def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     """Random parameters with the reference's shapes, dtypes and init
     formulas, drawn from ``gen`` (a generator on ``device``)."""
-    _check_config(cfg)
     dt = dtype_of(cfg)
     d, v = cfg.d_model, cfg.vocab_size
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
     normal = init_normal(gen, device, dt)
-    params = {"embed": normal((v, d), d ** -0.5),
+    params = {"embed": normal(cb + (v, d), d ** -0.5),
               "layers": [init_layer(cfg, kind, gen, device, dt)
                          for kind in cfg.layer_types()],
-              "final_norm": _init_norm(cfg, device, dt)}
+              "final_norm": init_norm(cfg, device, dt)}
     if not cfg.tie_embeddings:
-        params["head"] = normal((d, v), d ** -0.5)
+        params["head"] = normal(cb + (d, v), d ** -0.5)
     return params
 
 
@@ -121,18 +99,35 @@ def to_device(tree, device):
 # --------------------------------------------------------------------- #
 # embedding / head
 # --------------------------------------------------------------------- #
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    x = params["embed"][tokens]
+def embed_tokens(params, tokens, cfg: ModelConfig, img_embeds=None):
+    """tokens (B, S), or (B, S, K) for a codebook model (the K codebooks'
+    embeddings summed in order, in the weights' dtype); the text scaled,
+    then ``img_embeds`` (B, I, D) prepended."""
+    if cfg.num_codebooks:
+        x = 0
+        for k in range(cfg.num_codebooks):
+            x = x + params["embed"][k][tokens[..., k]]
+    else:
+        x = params["embed"][tokens]
     if cfg.scale_embeddings:   # the scale rounded to x's dtype first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    if img_embeds is not None:
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     return x
 
 
 def logits_for(params, x, cfg: ModelConfig):
-    """Float32 logits for a (B, S', D) activation slice."""
-    h = params["embed"].T if cfg.tie_embeddings else params["head"]
-    out = (x @ h).float()
+    """Float32 logits for a (B, S', D) activation slice: (B, S', V), or
+    (B, S', K, V) for a codebook model."""
+    if cfg.num_codebooks:
+        h = (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
+             else params["head"])
+        out = torch.einsum("bsd,kdv->bskv", x, h)
+    else:
+        out = x @ (params["embed"].T if cfg.tie_embeddings
+                   else params["head"])
+    out = out.float()
     if cfg.final_softcap > 0:
         out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
     return out
@@ -142,20 +137,24 @@ def logits_for(params, x, cfg: ModelConfig):
 # training: stack, forward, loss
 # --------------------------------------------------------------------- #
 def _apply_layer(x, p, cfg: ModelConfig, kind: str, positions):
-    """A layer's training form (no cache)."""
-    if kind in (ATTN, ATTN_LOCAL):
-        return _attention_layer(x, p, cfg, lambda y: (attn.attention_block(
-            y, p["attn"], cfg, positions, window=_window(cfg, kind)), None))[0]
+    """A layer's training form (no cache).  Returns (x, aux), aux the MoE
+    layer's balance loss (None for other layers)."""
+    if kind in ATTENTION_KINDS:
+        x, _, aux = _attention_layer(x, p, cfg, kind, lambda y: (
+            attn.attention_block(y, p["attn"], cfg, positions,
+                                 window=_window(cfg, kind)), None))
+        return x, aux
     if kind == MAMBA:
         return x + mam.mamba_block(apply_norm(x, p["norm1"], cfg),
-                                   p["mamba"], cfg)
+                                   p["mamba"], cfg), None
     x = x + rgl.recurrent_block(apply_norm(x, p["norm1"], cfg), p["rec"], cfg)
-    return x + mlp(apply_norm(x, p["norm2"], cfg), p["mlp"], cfg)
+    return x + mlp(apply_norm(x, p["norm2"], cfg), p["mlp"], cfg), None
 
 
 def run_stack(x, params, cfg: ModelConfig, positions, remat: bool = True):
-    """Apply every layer (training forms).  Returns (x, aux); aux, the MoE
-    balance loss of the reference, is 0 (no MoE layer is ported).
+    """Apply every layer (training forms).  Returns (x, aux), aux the sum
+    of the MoE layers' balance losses in layer order (float32 0 without
+    one), as the reference carries it through its scan.
 
     The repeated layers run in super-blocks of ``len(layer_pattern)``
     consecutive layers, the reference's scan body; with ``remat`` each
@@ -167,35 +166,40 @@ def run_stack(x, params, cfg: ModelConfig, positions, remat: bool = True):
     n_pat = len(cfg.layer_pattern)
     n_stack = cfg.n_rep * n_pat
 
-    def superblock(x, first):
-        for j in range(first, first + n_pat):
-            x = _apply_layer(x, params["layers"][j], cfg, kinds[j],
-                             positions)
-        return x
+    def layers(x, aux, lo, hi):
+        for j in range(lo, hi):
+            x, a = _apply_layer(x, params["layers"][j], cfg, kinds[j],
+                                positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = x.new_zeros((), dtype=torch.float32)
     for first in range(0, n_stack, n_pat):
-        x = (checkpoint(superblock, x, first, use_reentrant=False) if remat
-             else superblock(x, first))
-    for j in range(n_stack, cfg.n_layers):
-        x = _apply_layer(x, params["layers"][j], cfg, kinds[j], positions)
-    return x, x.new_zeros((), dtype=torch.float32)
+        x, aux = (checkpoint(layers, x, aux, first, first + n_pat,
+                             use_reentrant=False) if remat
+                  else layers(x, aux, first, first + n_pat))
+    return layers(x, aux, n_stack, cfg.n_layers)
 
 
-def forward_train(params, tokens, cfg: ModelConfig, remat: bool = True):
-    """Full-sequence activations before the head, tokens (B, S) ->
-    (x (B, S, D), aux)."""
-    _check_config(cfg)
-    x = embed_tokens(params, tokens, cfg)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    x, aux = run_stack(x, params, cfg, positions, remat=remat)
+def _positions(x):
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device).expand(b, s)
+
+
+def forward_train(params, tokens, cfg: ModelConfig, img_embeds=None,
+                  remat: bool = True):
+    """Full-sequence activations before the head (image positions
+    first), tokens (B, S[, K]) -> (x (B, I + S, D), aux)."""
+    x = embed_tokens(params, tokens, cfg, img_embeds)
+    x, aux = run_stack(x, params, cfg, _positions(x), remat=remat)
     return apply_norm(x, params["final_norm"], cfg), aux
 
 
 def _chunk_nll(params, xi, yi, cfg):
     """Summed negative log-likelihood of one sequence chunk, and its
-    count of valid (label >= 0) positions."""
-    lg = logits_for(params, xi, cfg)                       # (B, C, V) f32
+    count of valid (label >= 0) positions (and codebooks)."""
+    lg = logits_for(params, xi, cfg)                   # (B, C, [K,] V) f32
     lse = torch.logsumexp(lg, dim=-1)
     valid = yi >= 0
     tgt = torch.gather(lg, -1, torch.clamp_min(yi, 0)[..., None])[..., 0]
@@ -206,21 +210,27 @@ def loss_fn(params, batch, cfg: ModelConfig, seq_chunk: int = 512,
             remat: bool = True):
     """Mean next-token cross-entropy + 0.01 aux, the reference's.
 
-    ``batch`` holds ``tokens`` and ``labels`` (B, S) int tensors.  The
-    shifted sequence runs in chunks of ``seq_chunk`` positions (labels
-    padded with -1), each chunk's float32 logits made, reduced and, with
+    ``batch`` holds ``tokens`` and ``labels`` (B, S), or (B, S, K) for a
+    codebook model, and for a VLM ``img_embeds`` (B, I, D), whose
+    positions take no loss.  The shifted sequence runs in chunks of
+    ``seq_chunk`` positions (labels padded with -1 on the sequence
+    axis), each chunk's float32 logits made, reduced and, with
     ``remat``, recomputed in the backward pass, so at most one chunk's
-    (B, C, V) logits is alive; the per-chunk sums accumulate in order.
+    logits is alive; the per-chunk sums accumulate in order.
     """
     tokens, labels = batch["tokens"], batch["labels"]
-    x, aux = forward_train(params, tokens, cfg, remat=remat)
+    img = batch.get("img_embeds")
+    x, aux = forward_train(params, tokens, cfg, img_embeds=img, remat=remat)
+    if img is not None:
+        x = x[:, img.shape[1]:]            # the loss only over the text
     x, y = x[:, :-1], labels[:, 1:]
     b, s = x.shape[:2]
     seq_chunk = min(seq_chunk, s)
     pad = -s % seq_chunk
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        y = torch.nn.functional.pad(y, (0, pad), value=-1)
+        y = torch.nn.functional.pad(y, (0, 0) * (y.dim() - 2) + (0, pad),
+                                    value=-1)
     tot = x.new_zeros((), dtype=torch.float32)
     cnt = torch.zeros((), dtype=torch.int64, device=x.device)
     for c0 in range(0, s + pad, seq_chunk):
@@ -240,10 +250,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     """Zeroed decode state, one dict per layer: attention ``k``/``v``
     (B, Hkv, max_len, Dh) in ``dtype``; float32 recurrent and SSM
     states."""
-    _check_config(cfg)
     cache = []
     for kind in cfg.layer_types():
-        if kind in (ATTN, ATTN_LOCAL):
+        if kind in ATTENTION_KINDS:
             shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
             cache.append({"k": torch.zeros(shape, dtype=dtype, device=device),
                           "v": torch.zeros(shape, dtype=dtype, device=device)})
@@ -254,17 +263,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     return cache
 
 
-def _attention_layer(x, p, cfg, run):
+def _attention_layer(x, p, cfg, kind, run):
     """Norm, attention (``run`` -> (h, cache)), post-norm, residual, then
-    the MLP sublayer likewise."""
+    the MLP or MoE sublayer likewise.  Returns (x, cache, aux)."""
     h, cache = run(apply_norm(x, p["norm1"], cfg))
     if cfg.use_post_norm:
         h = apply_norm(h, p["post_norm1"], cfg)
     x = x + h
-    h = mlp(apply_norm(x, p["norm2"], cfg), p["mlp"], cfg)
+    y = apply_norm(x, p["norm2"], cfg)
+    aux = None
+    if kind == MOE:
+        h, aux = moe_mod.moe_mlp(y, p["moe"], cfg)
+    else:
+        h = mlp(y, p["mlp"], cfg)
     if cfg.use_post_norm:
         h = apply_norm(h, p["post_norm2"], cfg)
-    return x + h, cache
+    return x + h, cache, aux
 
 
 def _window(cfg, kind):
@@ -272,13 +286,13 @@ def _window(cfg, kind):
 
 
 def _prefill_layer(x, p, cfg, kind, positions, max_len):
-    if kind in (ATTN, ATTN_LOCAL):
+    if kind in ATTENTION_KINDS:
         def run(y):
             h, (k, v) = attn.attention_prefill(
                 y, p["attn"], cfg, positions, window=_window(cfg, kind),
                 cache_len=max_len)
             return h, {"k": k, "v": v}
-        return _attention_layer(x, p, cfg, run)
+        return _attention_layer(x, p, cfg, kind, run)[:2]
     if kind == MAMBA:
         h, st = mam.mamba_prefill(apply_norm(x, p["norm1"], cfg), p["mamba"],
                                   cfg)
@@ -289,13 +303,13 @@ def _prefill_layer(x, p, cfg, kind, positions, max_len):
     return x + mlp(apply_norm(x, p["norm2"], cfg), p["mlp"], cfg), st
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_len: int):
-    """Process the prompt (B, S); returns (last-token logits (B, 1, V),
-    cache), attention caches sized ``max_len``."""
-    _check_config(cfg)
-    x = embed_tokens(params, tokens, cfg)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+def prefill(params, tokens, cfg: ModelConfig, max_len: int,
+            img_embeds=None):
+    """Process the prompt (B, S[, K]) after the image prefix, if any;
+    returns (last-token logits (B, 1, [K,] V), cache), attention caches
+    sized ``max_len`` (which covers I + S)."""
+    x = embed_tokens(params, tokens, cfg, img_embeds)
+    positions = _positions(x)
     cache = []
     for kind, p in zip(cfg.layer_types(), params["layers"]):
         x, c = _prefill_layer(x, p, cfg, kind, positions, max_len)
@@ -305,13 +319,13 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int):
 
 
 def _decode_layer(x, p, cfg, kind, cache, cur_len):
-    if kind in (ATTN, ATTN_LOCAL):
+    if kind in ATTENTION_KINDS:
         def run(y):
             h, (k, v) = attn.attention_decode(
                 y, p["attn"], cfg, (cache["k"], cache["v"]), cur_len,
                 window=_window(cfg, kind))
             return h, {"k": k, "v": v}
-        return _attention_layer(x, p, cfg, run)
+        return _attention_layer(x, p, cfg, kind, run)[:2]
     if kind == MAMBA:
         h, st = mam.mamba_decode(apply_norm(x, p["norm1"], cfg), p["mamba"],
                                  cfg, cache)
@@ -324,9 +338,9 @@ def _decode_layer(x, p, cfg, kind, cache, cur_len):
 
 def decode_step(params, tokens, cache: list, cur_len: int,
                 cfg: ModelConfig):
-    """One new token per sequence: tokens (B, 1) at position ``cur_len``
-    (a host int).  Returns (logits (B, 1, V), cache); attention caches
-    are updated in place, recurrent states replaced."""
+    """One new token per sequence: tokens (B, 1[, K]) at position
+    ``cur_len`` (a host int).  Returns (logits (B, 1, [K,] V), cache);
+    attention caches are updated in place, recurrent states replaced."""
     x = embed_tokens(params, tokens, cfg)
     new_cache = []
     for kind, p, c in zip(cfg.layer_types(), params["layers"], cache):

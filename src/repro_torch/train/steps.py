@@ -22,7 +22,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     grad_accum: int = 1, remat: bool = True):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``; ``batch`` holds ``tokens`` and ``labels``
-    tensors on the parameters' device.  The step updates ``params`` and
+    tensors on the parameters' device (and a VLM's ``img_embeds``).  The step updates ``params`` and
     ``opt_state`` in place and returns them, with ``metrics`` ``loss``,
     ``grad_norm`` and ``lr`` (0-dim float32 tensors)."""
     decay = None
@@ -69,8 +69,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
-    def prefill_step(params, tokens):
-        return lm.prefill(params, tokens, cfg, max_len=max_len)
+    def prefill_step(params, tokens, img_embeds=None):
+        return lm.prefill(params, tokens, cfg, max_len=max_len,
+                          img_embeds=img_embeds)
     return prefill_step
 
 

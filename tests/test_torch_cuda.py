@@ -475,6 +475,17 @@ ATTENTION = {
                               window=4096, softcap=50.0),
     "gemma2_full_global": dict(b=1, hq=8, hkv=4, sq=3072, skv=3072, d=256,
                                softcap=50.0),
+    # D = 8 (starcoder2 and llava smoke; bf16 through the D = 16 form on
+    # zero-padded columns), D = 160 (stablelm-12b at full width), GQA
+    # groups of 12 (starcoder2-15b) and 7 (llava-next-34b over its 2,880
+    # image positions and 3,072 tokens) at full width, MHA at D = 128
+    # (qwen1.5-32b) and D = 64 (musicgen-large)
+    "starcoder2_smoke": dict(b=2, hq=8, hkv=2, sq=37, skv=37, d=8),
+    "stablelm_full": dict(b=1, hq=32, hkv=8, sq=3072, skv=3072, d=160),
+    "starcoder2_full": dict(b=1, hq=48, hkv=4, sq=3072, skv=3072, d=128),
+    "llava_full": dict(b=1, hq=56, hkv=8, sq=5952, skv=5952, d=128),
+    "qwen1_5_mha": dict(b=1, hq=40, hkv=40, sq=300, skv=300, d=128),
+    "musicgen_mha": dict(b=1, hq=32, hkv=32, sq=300, skv=300, d=64),
 }
 
 
@@ -520,7 +531,8 @@ def test_flash_attention_kernel_matches_plain(cuda, name, dtype, tol):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("hq,hkv,d,window,softcap", [
-    (4, 2, 16, 16, 50.0), (16, 1, 256, 2048, 0.0), (8, 4, 256, 0, 50.0)])
+    (4, 2, 16, 16, 50.0), (16, 1, 256, 2048, 0.0), (8, 4, 256, 0, 50.0),
+    (32, 8, 160, 0, 0.0), (8, 2, 8, 0, 0.0)])
 def test_flash_attention_decode_on_a_cache_view(cuda, dtype, tol, hq, hkv, d,
                                                 window, softcap):
     """Sq = 1 on the live slice of a (B, Hkv, Smax, D) cache, as
@@ -563,15 +575,19 @@ def test_flash_attention_kernel_zero_rows_and_checks(cuda):
 @pytest.mark.parametrize("hq,hkv,d,softcap", [(4, 4, 64, 0.0),
                                               (8, 4, 256, 50.0),
                                               (8, 1, 128, 50.0),
-                                              (16, 1, 256, 0.0)])
+                                              (16, 1, 256, 0.0),
+                                              (32, 8, 160, 0.0),
+                                              (16, 16, 128, 0.0),
+                                              (48, 4, 128, 0.0),
+                                              (56, 8, 128, 0.0)])
 @pytest.mark.parametrize("skv,window", [
     (1, 0), (15, 0), (16, 0), (17, 0), (63, 0), (64, 0), (65, 0),
-    (2048, 2048), (2048, 0), (3104, 0), (3104, 2048), (3104, 1)])
+    (2048, 2048), (2048, 0), (3104, 0), (3104, 2048), (3104, 1), (5984, 0)])
 def test_flash_attention_decode_split_edges(cuda, dtype, tol, hq, hkv, d,
                                             softcap, skv, window):
     """Sq = 1 at the bf16 decode form's split edges (1 key, a split's
     length +-1, the serving lengths), with a window inside the passed keys,
-    and GQA groups of 1, 2, 8 and 16: against the plain version (bf16 also
+    and GQA groups of 1, 2, 7, 8, 12 and 16: against the plain version (bf16 also
     row by row), two launches bit-equal; each bf16 call is one
     ``flash_attention`` and one ``flash_attention_combine`` launch, each
     float32 call one ``flash_attention`` launch (the CUDA-core form)."""
@@ -593,7 +609,7 @@ def test_flash_attention_decode_split_edges(cuda, dtype, tol, hq, hkv, d,
         assert _row_rel(got, want) < BF16_ROW_REL
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 256])
 @pytest.mark.parametrize("sq,skv,window,softcap,causal", [
     (100, 100, 0, 0.0, True), (70, 150, 32, 50.0, True),
     (40, 4, 0, 0.0, True), (129, 129, 0, 0.0, False)])
@@ -722,28 +738,59 @@ def test_mamba_kernel_chunk_and_block_edges(cuda, dtype, n, b, s, dm):
     assert float((h.cpu() - plain_h).abs().max()) < 1e-4
 
 
+def _smoke_inputs(cfg, b, s, gen):
+    """Prompts (B, S[, K]) and, for a VLM, float32 image embeddings."""
+    shape = (b, s) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
+    prompts = torch.randint(0, cfg.vocab_size, shape, generator=gen)
+    img = (torch.randn((b, cfg.img_tokens, cfg.d_model), generator=gen)
+           if cfg.family == "vlm" else None)
+    return prompts, img
+
+
+def _on(t, dev):
+    return None if t is None else t.to(dev)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_serving_on_card_matches_cpu(cuda, arch):
-    """The same float32 weights and prompts: greedy tokens identical,
-    prefill and last logits within 1e-4, every kernel of the family
-    launched on the card and none on the CPU."""
+    """The same float32 weights and prompts (and image embeddings):
+    greedy tokens identical, prefill and last logits within 1e-4, every
+    kernel of the family launched on the card and none on the CPU."""
     import dataclasses
     cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
     gen = torch.Generator().manual_seed(0)
     params = lm.init_params(cfg, gen, "cpu")
-    prompts = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    prompts, img = _smoke_inputs(cfg, 2, 40, gen)
+    max_len = 52 + cfg.img_tokens
     LAUNCHES.clear()
-    cpu = generate(params, prompts, cfg, 12, 52)
+    cpu = generate(params, prompts, cfg, 12, max_len, img_embeds=img)
     assert dict(LAUNCHES) == {}
-    card = generate(lm.to_device(params, cuda), prompts.to(cuda), cfg, 12, 52)
+    card = generate(lm.to_device(params, cuda), prompts.to(cuda), cfg, 12,
+                    max_len, img_embeds=_on(img, cuda))
     kinds = set(cfg.layer_types())
-    want = {"flash_attention": bool(kinds & {"attn", "attn_local"}),
+    want = {"flash_attention": bool(kinds & {"attn", "attn_local", "moe"}),
             "rglru_scan": "recurrent" in kinds,
             "selective_scan": "mamba" in kinds}
     assert {k: LAUNCHES[k] > 0 for k in want} == want
     np.testing.assert_array_equal(card["tokens"], cpu["tokens"])
     for key in ("prefill_logits", "logits"):
         assert float((card[key].cpu() - cpu[key]).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+def test_moe_generate_repeats_on_card(cuda, arch):
+    """An MoE smoke config (bf16) served twice on the card: the same
+    tokens and logits bit for bit (the dispatch assigns, the combine sums
+    in order: no atomics on the serving path)."""
+    cfg = get_smoke_config(arch)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = lm.init_params(cfg, gen, cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen,
+                            device=cuda)
+    runs = [generate(params, prompts, cfg, 16, 80) for _ in range(2)]
+    np.testing.assert_array_equal(runs[0]["tokens"], runs[1]["tokens"])
+    for key in ("prefill_logits", "logits"):
+        assert torch.equal(runs[0][key], runs[1][key])
 
 
 # --------------------------------------------------------------------- #
@@ -806,16 +853,18 @@ def test_lm_kernels_refuse_grad_on_card(cuda):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_loss_and_grads_on_card_match_cpu(cuda, arch):
-    """The same float32 weights and tokens: the loss within 1e-5
-    relative and every gradient leaf within 1e-4 of its largest |value|
-    on the card and the CPU; the training forms launch no LM kernel."""
+    """The same float32 weights and tokens (codebook labels, image
+    embeddings): the loss within 1e-5 relative and every gradient leaf
+    within 1e-4 of its largest |value| on the card and the CPU; the
+    training forms launch no LM kernel.  An MoE layer's backward sums
+    its token gathers with atomics on the card, so its gradients differ
+    from the CPU's at rounding level, not bit for bit."""
     import dataclasses
 
     from repro_torch.train.optimizer import tree_leaves
     cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    tok = torch.randint(0, cfg.vocab_size, (2, 48),
-                        generator=torch.Generator().manual_seed(1))
+    tok, img = _smoke_inputs(cfg, 2, 48, torch.Generator().manual_seed(1))
     out = {}
     LAUNCHES.clear()
     for dev in ("cpu", cuda):
@@ -824,7 +873,10 @@ def test_smoke_loss_and_grads_on_card_match_cpu(cuda, arch):
         for x in leaves:
             x.requires_grad_(True)
         t = tok.to(dev)
-        loss = lm.loss_fn(p, {"tokens": t, "labels": t}, cfg, seq_chunk=16)
+        batch = {"tokens": t, "labels": t}
+        if img is not None:
+            batch["img_embeds"] = img.to(dev)
+        loss = lm.loss_fn(p, batch, cfg, seq_chunk=16)
         out[str(dev)] = (loss.detach().cpu(), [g.cpu() for g in
                          torch.autograd.grad(loss, leaves)])
     assert not any(LAUNCHES[k] for k in ("flash_attention", "rglru_scan",

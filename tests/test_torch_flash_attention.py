@@ -24,7 +24,7 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
-# tests/test_kernels.py:44-53
+# tests/test_kernels.py:44-53, and D = 160
 CASES = {
     "mha": dict(b=1, hq=4, hkv=4, sq=64, skv=64, d=32),
     "gqa": dict(b=2, hq=8, hkv=2, sq=64, skv=64, d=32),
@@ -34,6 +34,8 @@ CASES = {
     "decode": dict(b=1, hq=4, hkv=2, sq=1, skv=100, d=32),
     "window_offset": dict(b=1, hq=2, hkv=2, sq=40, skv=104, d=64, window=32),
     "noncausal": dict(b=1, hq=2, hkv=2, sq=64, skv=64, d=32, causal=False),
+    # stablelm-12b's head dim (GQA 32/8 at full width)
+    "d160": dict(b=1, hq=4, hkv=1, sq=64, skv=64, d=160),
 }
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}

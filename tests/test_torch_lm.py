@@ -6,8 +6,8 @@ same inputs (numpy, from a seed) go through both packages:
 - each layer function against its JAX counterpart, float32, within
   2e-5 (the attention kernels' float32 bar; the scans' 1e-4 where an
   RG-LRU or selective scan sums in another order);
-- per family (gemma2-2b, recurrentgemma-9b, falcon-mamba-7b SMOKE), in
-  float32 and in bf16: ``prefill`` logits and caches, several
+- per family (gemma2-2b, recurrentgemma-9b, falcon-mamba-7b SMOKE; the
+  other seven in ``test_torch_lm_families.py``), in float32 and in bf16: ``prefill`` logits and caches, several
   ``decode_step``s fed the reference's tokens, and ``generate``'s
   greedy tokens against the reference's serving loop
   (``repro/launch/serve.py:37-59``, which ``serve`` itself runs).
@@ -52,6 +52,8 @@ from repro_torch.models import mamba  # noqa: E402
 from repro_torch.models import rglru  # noqa: E402
 
 B, S, GEN = 2, 32, 8          # the prompt is longer than the 16 window
+# the families held here; test_torch_lm_families.py holds the other seven
+SERVED = ("gemma2-2b", "recurrentgemma-9b", "falcon-mamba-7b")
 TOL = {"float32": dict(logits=2e-5, atol=2e-5, rtol=1e-4),
        "bfloat16": dict(logits=0.15, atol=0.05, rtol=0.02)}
 
@@ -208,7 +210,9 @@ def test_attention_with_qkv_bias_and_padded_heads():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_follows_reference_shapes_and_formulas(arch):
     """The port's random init: the reference's tree (after conversion)
-    key for key, shape, dtype; the fixed inits equal (norms, D, biases)
+    key for key, shape, dtype (the MoE router float32, the codebook
+    embedding and head (K, V, D) and (K, D, V)); the fixed inits equal
+    (norms, D, biases, the shared experts' gate)
     or within 1e-6 (A_log, lam: log, expm1, linspace of two libraries);
     the random ones at their formula's scale."""
     rcfg, tcfg = configs(arch, "bfloat16")
@@ -228,7 +232,8 @@ def test_init_params_follows_reference_shapes_and_formulas(arch):
         else:
             assert a.shape == b.shape and a.dtype == b.dtype, path
             name = path[-1]
-            if name in ("scale", "D", "ba", "bx"):
+            if name in ("scale", "bias", "D", "ba", "bx", "bq", "bk", "bv",
+                        "shared_gate"):
                 assert torch.equal(a, b), path
             elif name in ("A_log", "lam"):
                 torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
@@ -307,7 +312,7 @@ def reference_loop(params, prompts, cfg, gen_tokens):
     return out
 
 
-FAMILIES = [(a, d) for a in ARCHS for d in ("float32", "bfloat16")]
+FAMILIES = [(a, d) for a in SERVED for d in ("float32", "bfloat16")]
 
 
 @pytest.fixture(scope="module", params=FAMILIES, ids=lambda p: "-".join(p))
@@ -380,7 +385,7 @@ def test_generate_tokens_match_reference(family):
             assert got[b, t] == want[b, t], (f["arch"], b, t)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_generate_reproduces_reference_serve(arch):
     """The reference loop above is ``serve``'s: on the reference's own
     smoke config (bf16, seed 0) both give the same tokens."""
@@ -394,7 +399,7 @@ def test_generate_reproduces_reference_serve(arch):
         reference_loop(params, prompts, rcfg, GEN)["tokens"], want)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVED)
 def test_prefill_decode_consistency(arch):
     """Token-by-token decode from an empty cache reproduces the prefill
     logits (the port's own paths; bf16 smoke config)."""
@@ -410,16 +415,26 @@ def test_prefill_decode_consistency(arch):
 
 
 def test_serve_on_the_cpu_and_unported_parts():
+    """``serve`` on the CPU; only greedy decoding is served; every
+    architecture of the reference resolves (the MoE layer too), and an
+    unknown id raises as in the reference (no such config module)."""
     out = serve("recurrentgemma-9b", batch=2, prompt_len=20, gen_tokens=4,
                 device="cpu")
     assert out["tokens"].shape == (2, 4) and out["tok_per_s"] > 0
     assert bool(torch.isfinite(out["logits"]).all())
     with pytest.raises(NotImplementedError, match="greedy"):
         serve("gemma2-2b", greedy=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        lm.init_params(dataclasses.replace(get_smoke_config("gemma2-2b"),
-                                           layer_pattern=("moe",)),
-                       torch.Generator(), "cpu")
+    params = lm.init_params(dataclasses.replace(
+        get_smoke_config("olmoe-1b-7b"), layer_pattern=("moe",)),
+        torch.Generator(), "cpu")
+    assert all("moe" in layer for layer in params["layers"])
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro.configs import get_config as ref_get_config
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        get_config("olmoe-1b-7b")
+    assert ARCHS == REF_ARCHS
+    for arch in ARCHS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+            ref_get_config(arch))
+    for get in (get_config, ref_get_config):
+        with pytest.raises(ModuleNotFoundError):
+            get("gpt-5")

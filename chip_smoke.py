@@ -100,7 +100,7 @@ Phases, in order; any failure exits non-zero:
    process for the traced-vs-untraced span (CUDA events), and eager runs
    alternated for the host-bound eager interval's wall time; the fuzz
    sweep at ``FuzzConfig``'s defaults (the 24-point Θ grid, 6 s, four
-   topologies, 0-3 events) cut from 512 to 64 scenarios, diagnosis on,
+   topologies, 0-3 events) cut from 512 to 32 scenarios, diagnosis on,
    twice on graphs (the two ``report.json`` byte-identical; wall time,
    captures, buckets); ``SMOKE`` cut from 64 to 16 scenarios on the
    card on graphs and eager and on the CPU (the three reports
@@ -113,9 +113,9 @@ Phases, in order; any failure exits non-zero:
    run go into rows 1 and 2.  Its outputs are written under
    ``build/obs/``;
 11. the rest of DIAL's side, with the same model: ``run_comparison(
-   "failing_ost")`` (frozen vs online refit, 90 intervals x 2 arms,
-   refits of 40 x 5 trees) on the card here and in a child process
-   (reports byte-identical) and on the CPU in another child (the frozen
+   "failing_ost", seconds=22.5)`` (frozen vs online refit, 45 intervals
+   x 2 arms, refits of 40 x 5 trees) on the card here and in a child
+   process (reports byte-identical) and on the CPU in another child (the frozen
    arm bit-equal, the online arm through its first refit; a later
    difference is logged with its interval); ``continual --hard-from``
    on phase 10's cut-sweep report with the ``--smoke`` settings through
@@ -2067,7 +2067,7 @@ def lab_phase(model, seed: int, dev, kernels: list, card: str) -> None:
 TRACE_STRIDE = 20
 AB_ORDER = ("untraced", "traced", "traced", "untraced", "untraced",
             "traced")                     # replayed runs, alternated
-FUZZ_SCENARIOS = 64                       # FuzzConfig's 512, cut
+FUZZ_SCENARIOS = 32                       # FuzzConfig's 512, cut
 CUT_SCENARIOS = 16                        # SMOKE's 64, cut: card vs CPU
 OBS_ROOT = os.path.join(ROOT, "build", "obs")
 
@@ -2237,7 +2237,7 @@ def _sweep_line(name: str, r: dict) -> str:
 
 def obs_fuzz(model, dev, card: str) -> dict:
     """The fuzz sweep at ``FuzzConfig``'s defaults (the 24-point Θ grid,
-    6 s, four topologies, 0-3 events) cut to 64 scenarios, diagnosis on,
+    6 s, four topologies, 0-3 events) cut to 32 scenarios, diagnosis on,
     twice on graphs: the two reports byte-identical."""
     import shutil
 
@@ -2508,6 +2508,9 @@ def obs_phase(model, seed: int, dev, kernels: list, card: str) -> str:
 # phase 11: continual refit, the hard-case curriculum, overhead, the mesh
 # ---------------------------------------------------------------------- #
 CONT_SCENARIO = "failing_ost"             # run_comparison's default
+# half run_comparison's 45 s (the OST fails at 3 s): 45 intervals x 2
+# arms, cut to keep the smoke with phase 14 well inside its 1,200 s
+CONT_SECONDS = 22.5
 DIAL_ROOT = os.path.join(ROOT, "build", "dial")
 TRAIN_ROOT = os.path.join(ROOT, "build", "train")
 
@@ -2521,7 +2524,7 @@ import json, os, sys, time
 import torch
 from repro_torch.kernels import LAUNCHES
 from repro_torch.lab import batch as LB
-what, prefix, out, arg = sys.argv[1:5]
+what, prefix, out, arg, seconds = sys.argv[1:6]
 dev = torch.device("cpu" if what == "cpu" else "cuda")
 if dev.type == "cpu":
     torch.set_num_threads(1)
@@ -2538,7 +2541,8 @@ else:
     from repro_torch.core.model import DIALModel
     from repro_torch.lab.continual import run_comparison, write_report
     model = DIALModel.load(prefix, device=dev)
-    write_report(run_comparison(arg, model, device=dev), out)
+    write_report(run_comparison(arg, model, seconds=float(seconds),
+                                device=dev), out)
 sync()
 secs = time.perf_counter() - t0
 os.makedirs(out, exist_ok=True)
@@ -2554,7 +2558,7 @@ def _child(what: str, prefix: str, out: str, arg: str):
     if what == "cpu":
         env["CUDA_VISIBLE_DEVICES"] = ""
     return subprocess.Popen([sys.executable, "-c", CHILD_RUN, what, prefix,
-                             out, arg], env=env, stdout=subprocess.PIPE,
+                             out, arg, str(CONT_SECONDS)], env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
@@ -2579,7 +2583,8 @@ def _first_diff(a: list, b: list):
 
 
 def dial_comparison(model, dev, card: str, children: dict) -> dict:
-    """``run_comparison("failing_ost")`` at its defaults on the card, here
+    """``run_comparison("failing_ost")`` at its defaults but
+    :data:`CONT_SECONDS` on the card, here
     and in a child process (the two reports byte-identical), and in a
     child on the CPU: the frozen arm bit-equal, the online arm bit-equal
     through its first refit; a later difference is stated, not hidden.
@@ -2599,7 +2604,7 @@ def dial_comparison(model, dev, card: str, children: dict) -> dict:
     O.OnlineTrainer._refit = refit
     try:
         rep, secs, counts = counted(lambda: run_comparison(
-            CONT_SCENARIO, model, device=dev))
+            CONT_SCENARIO, model, seconds=CONT_SECONDS, device=dev))
     finally:
         O.OnlineTrainer._refit = orig
     with open(write_report(rep, os.path.join(DIAL_ROOT, "card"))) as f:
@@ -2643,8 +2648,8 @@ def dial_comparison(model, dev, card: str, children: dict) -> dict:
         counts=counts, again_counts=again["counts"],
         refit_rows=first.get("data"))
     log(f"{card} | continual {CONT_SCENARIO} at run_comparison's defaults "
-        f"({len(fr['tput_mbs'])} intervals x 2 arms, refits of 40 x 5 "
-        f"trees): card {secs:.3f} s here and {again['seconds']:.3f} s in a "
+        f"but {CONT_SECONDS:g} s ({len(fr['tput_mbs'])} intervals x 2 arms, "
+        f"refits of 40 x 5 trees): card {secs:.3f} s here and {again['seconds']:.3f} s in a "
         f"child process beside it (reports byte-identical), the CPU "
         f"{on_cpu['seconds']:.3f} s in another child (plain versions, one "
         f"thread); frozen arm card == CPU bit for bit; online arm: "
@@ -3622,6 +3627,417 @@ def family_phase(seed: int, dev, kernels: list, card: str) -> None:
     log(f"{card} | phase 13: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------- #
+# phase 14: the LM over a mesh (DTensor over NCCL, one process a card)
+# ---------------------------------------------------------------------- #
+MESH_ARCH = "gemma2-2b"
+MESH_RUN = dict(steps=2, batch=4, seq_len=2048)     # phase 12's shape
+# warmup 1: the lr is at its peak from the first step, so the two steps'
+# updates are large enough for bf16 parameters to show them
+MESH_OPT = dict(warmup_steps=1, total_steps=2)
+# the sharded step against the one-card step, bf16, with bars a fault
+# cannot pass.  The loss within MESH_LOSS_BAR absolute (the plain loss
+# moves ~1.1e-2 from step 1 to step 2, so a step that updates nothing
+# fails it) and the grad norm within MESH_NORM_BAR relative.  Each
+# gradient leaf of the first batch within MESH_GRAD_BAR of its norm (a
+# leaf left partial over two data ranks, or a half batch, is ~0.5 off).
+# The parameters after the last step within MESH_UPDATE_BAR of the plain
+# run's own update, in norm: Adam moves an element by about lr in its
+# gradient's sign, so two runs part only where that sign flips, while no
+# update, or one from another gradient, is ~1 off.  On one card (a 1 x 1
+# mesh, every placement trivial) every gradient leaf is bit-equal
+MESH_LOSS_BAR = 2e-3
+MESH_NORM_BAR = 5e-3
+MESH_GRAD_BAR = 0.1
+MESH_UPDATE_BAR = 0.5
+MESH_REPS = 5                              # timed reductions per mode
+
+
+def mesh_shape(n: int) -> tuple:
+    """(data, model) of the mesh over ``n`` cards: 2-way tensor parallel
+    from 4 cards up, data parallel over the rest."""
+    m = 2 if n >= 4 and n % 2 == 0 else 1
+    return n // m, m
+
+
+def _mesh_rank(rank: int, world: int, job: dict) -> None:
+    """One rank of phase 14: its card, NCCL, the work, rank 0's result."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=job["init"], rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=600),
+        device_id=torch.device("cuda", rank))
+    try:
+        res = _mesh_work(rank, job)
+        if rank == 0:
+            with open(job["out"], "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sync_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _mesh_train(cfg, params, state, batches) -> tuple:
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.steps import make_train_step
+
+    step = make_train_step(cfg, AdamWConfig(**MESH_OPT))
+    recs = []
+    for batch in batches:
+        (params, state, m), ms = _sync_ms(lambda b=batch: step(
+            params, state, b))
+        recs.append(dict(loss=float(m["loss"]),
+                         grad_norm=float(m["grad_norm"]), step_ms=ms))
+    return params, state, recs
+
+
+def _grads(cfg, params, batch) -> list:
+    """The loss's gradients at ``params`` (plain tensors or DTensors) on
+    ``batch``, in ``tree_leaves`` order."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.steps import _on_mesh
+
+    leaves = tree_leaves(params)
+    with _on_mesh(leaves[0]), torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            return list(torch.autograd.grad(lm.loss_fn(params, batch, cfg),
+                                            leaves))
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+
+
+def _leaf_names(tree, path=()) -> list:
+    """The parameter tree's leaf paths in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k],
+                                                             path + (k,))]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, path + (str(i),))]
+    return ["/".join(path)]
+
+
+def _mesh_work(rank: int, job: dict) -> dict:
+    """Phase 14's work on one rank (see :func:`mesh_phase`)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.manager import CheckpointManager, reshard_checkpoint
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.compression import (init_error_bufs,
+                                                     make_dp_train_grads,
+                                                     wire_bytes)
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
+                                             tree_leaves)
+
+    dev = torch.device("cuda", rank)
+    cfg = (get_smoke_config if job["smoke"] else get_config)(job["arch"])
+    n_data, n_model = job["shape"]
+    mesh = make_test_mesh(n_data, n_model)
+    world = n_data * n_model
+    gib = 2 ** 30
+
+    def fresh():
+        return lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            job["seed"]), dev)
+    gen = torch.Generator(device=dev).manual_seed(job["seed"] + 1)
+    tokens = [torch.randint(0, cfg.vocab_size, (job["batch"], job["seq_len"]),
+                            generator=gen, device=dev)
+              for _ in range(job["steps"])]
+    res = dict(shape=[n_data, n_model], world=world)
+
+    def gathered(x):
+        out = [None] * world
+        dist.all_gather_object(out, x)
+        return out
+
+    parts = res["part_s"] = {}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    names = _leaf_names(lm.abstract_params(cfg))
+
+    # 1. the same two steps unsharded on card 0, after the first batch's
+    #    gradients (kept on the host) and before the update's size
+    if rank == 0:
+        params = fresh()
+        plain_g = [g.cpu() for g in _grads(
+            cfg, params, {"tokens": tokens[0], "labels": tokens[0]})]
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, state, recs = _mesh_train(
+            cfg, params, init_opt_state(params),
+            [{"tokens": t, "labels": t} for t in tokens])
+        res["plain"] = dict(
+            steps=recs, peak_gib=torch.cuda.max_memory_allocated(dev) / gib)
+        del state
+        moved = [float(((p.float() - q.float()) ** 2).sum()) for p, q in
+                 zip(tree_leaves(params), tree_leaves(fresh()))]
+        plain = [p.cpu() for p in tree_leaves(params)]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    part("plain")
+
+    # 2. the sharded steps: params by param_pspecs, moments by ZeRO-1, the
+    #    batch over the data axes; first the first batch's gradients,
+    #    leaf by leaf against the plain ones on card 0
+    LAUNCHES.clear()
+    params = fresh()
+    specs = shd.validate_pspecs(shd.param_pspecs(params), params, mesh)
+    params = shd.distribute(params, mesh, specs)
+    zspecs = shd.validate_pspecs(shd.zero1_pspecs(params, specs, mesh),
+                                 params, mesh)
+    state = init_opt_state(params, zspecs)
+    bspec = shd.P(*shd.batch_pspec(mesh), None)
+    batches = [shd.distribute({"tokens": t, "labels": t}, mesh,
+                              {"tokens": bspec, "labels": bspec})
+               for t in tokens]
+    rel, n_equal = [], 0
+    for a in _grads(cfg, params, batches[0]):
+        a = a.full_tensor()
+        if rank == 0:
+            b = plain_g[len(rel)].to(dev)
+            n_equal += bool(torch.equal(a, b))
+            norm = float(torch.linalg.vector_norm(b.float()))
+            rel.append(float(torch.linalg.vector_norm(
+                a.float() - b.float())) / max(norm, 1e-30))
+        del a
+    if rank == 0:
+        del plain_g, b
+        res["grads"] = dict(
+            bit_equal=n_equal, n_leaves=len(rel), worst=max(rel),
+            most=sorted(zip(rel, names), reverse=True)[:4])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, state, recs = _mesh_train(cfg, params, state, batches)
+    peak = gathered(torch.cuda.max_memory_allocated(dev) / gib)
+    res["sharded"] = dict(steps=recs, peak_gib=peak, launches=dict(LAUNCHES))
+    n_moment = sum(1 for s in shd.spec_leaves(zspecs)
+                   if any(a is not None and "data" in (a if isinstance(
+                       a, tuple) else (a,)) for a in s))
+    res["sharded"]["moments_data_sharded"] = n_moment
+    full = [p.full_tensor() for p in tree_leaves(params)]
+    if rank == 0:                     # leaf by leaf on the card
+        err, n_off, n_all, n_equal, apart = 0.0, 0, 0, 0, []
+        for a, b in zip(full, plain):
+            b = b.to(dev)
+            d = (a.float() - b.float()).abs()
+            err = max(err, float(d.max()))
+            n_off += int((d > 0).sum())
+            n_all += d.numel()
+            n_equal += bool(torch.equal(a, b))
+            apart.append(float((d ** 2).sum()))
+            del b, d
+        res["params"] = dict(
+            abs_err=err, err_in_lr=err / AdamWConfig(**MESH_OPT).peak_lr,
+            share_off=n_off / n_all, bit_equal=n_equal, n_leaves=len(plain),
+            over_update=(sum(apart) / sum(moved)) ** 0.5,
+            most=sorted(((x / max(m, 1e-30)) ** 0.5, n) for x, m, n in zip(
+                apart, moved, names))[-4:][::-1])
+        del plain
+    del full, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("sharded")
+
+    # 3. a save under the mesh, restored and re-placed on the transpose
+    ck = CheckpointManager(job["ckpt"], keep=1, cfg=cfg)
+    _, res["save_ms"] = _sync_ms(lambda: ck.save(2, params,
+                                                through_pfs=False))
+    restored, res["restore_ms"] = _sync_ms(
+        lambda: ck.restore(2, params)[0])
+    tmesh = make_test_mesh(n_model, n_data) if (n_model, n_data) != (
+        n_data, n_model) else mesh
+    tspecs = shd.validate_pspecs(shd.param_pspecs(restored), restored, tmesh)
+    moved = reshard_checkpoint(restored, tmesh, tspecs)
+    equal = all(torch.equal(a.full_tensor(), b.full_tensor())
+                for a, b in zip(tree_leaves(moved), tree_leaves(params)))
+    res["remesh"] = dict(onto=list(tmesh.shape), bit_equal=all(
+        gathered(equal)))
+    del moved, restored, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("checkpoint")
+
+    # 4. pure DP over the data axis: EF-int8 compressed and plain
+    params = fresh()
+    loss_fn = lambda p, b: lm.loss_fn(p, b, cfg)          # noqa: E731
+    batch = {"tokens": tokens[0], "labels": tokens[0]}
+    group = mesh.get_group("data")
+    dp = {}
+    for compress in (True, False):
+        fn = make_dp_train_grads(loss_fn, mesh, compress=compress)
+        bufs = init_error_bufs(params, n_data, mesh) if compress else None
+        (loss, grads, _), ms = _sync_ms(lambda: fn(params, batch, bufs))
+        dp[compress] = dict(loss=float(loss), grads_fn_ms=ms,
+                            wire_bytes=wire_bytes(grads, compress))
+        del grads, bufs
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in tree_leaves(params)]
+    from repro_torch.distributed.compression import compressed_psum
+
+    bufs = [torch.zeros(g.shape, dtype=torch.float32, device=dev)
+            for g in grads]
+
+    def plain_reduce():
+        for g in grads:
+            t = g.clone()
+            dist.all_reduce(t, group=group)
+            t.div_(n_data)
+
+    for compress, fn in ((True, lambda: compressed_psum(grads, bufs, group)),
+                         (False, plain_reduce)):
+        fn()
+        times = [_sync_ms(fn)[1] for _ in range(MESH_REPS)]
+        dp[compress]["reduce_ms"] = times
+    res["dp"] = {("compressed" if k else "plain"): v for k, v in dp.items()}
+    res["launches_total"] = dict(LAUNCHES)
+    part("dp")
+    return res
+
+
+def run_mesh(build: str, seed: int, *, arch: str = MESH_ARCH,
+             smoke: bool = False, **run) -> dict:
+    """Phase 14's work (:func:`_mesh_work`) on every visible card, one
+    process each; rank 0's result.  ``run`` overrides :data:`MESH_RUN`.
+    A failed rank raises here."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    shutil.rmtree(build, ignore_errors=True)
+    os.makedirs(build)
+    job = dict(MESH_RUN, **run, seed=seed, arch=arch, smoke=smoke,
+               shape=list(mesh_shape(world)),
+               init="file://" + os.path.join(build, "init"),
+               out=os.path.join(build, "result.json"),
+               ckpt=os.path.join(build, "ckpt"))
+    try:
+        mp.spawn(_mesh_rank, args=(world, job), nprocs=world, join=True)
+        with open(job["out"]) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(job["ckpt"], ignore_errors=True)
+
+
+def check_mesh(res: dict, card: str, what: str) -> None:
+    """Log :func:`run_mesh`'s result, then hold it to the bars above."""
+    shape = "x".join(map(str, res["shape"]))
+    plain, sh, gr, pa = res["plain"], res["sharded"], res["grads"], \
+        res["params"]
+    head = f"{card} | mesh {shape} ({res['world']} card(s)) {what}"
+    faults = []
+    for i, (a, b) in enumerate(zip(plain["steps"], sh["steps"])):
+        log(f"{head} step {i + 1}: loss {b['loss']:.6f} (one card "
+            f"{a['loss']:.6f}, {abs(b['loss'] - a['loss']):.3g} apart), grad "
+            f"norm {b['grad_norm']:.6f} (one card {a['grad_norm']:.6f}, "
+            f"{abs(b['grad_norm'] / a['grad_norm'] - 1):.3g} relative), step "
+            f"{b['step_ms']:.1f} ms (one card {a['step_ms']:.1f} ms)")
+        if not (abs(b["loss"] - a["loss"]) <= MESH_LOSS_BAR and abs(
+                b["grad_norm"] - a["grad_norm"]) <= MESH_NORM_BAR * abs(
+                    a["grad_norm"])):
+            faults.append(f"step {i + 1}'s loss or grad norm")
+    log(f"{head}: first-batch gradients {gr['bit_equal']} of "
+        f"{gr['n_leaves']} leaves bit-equal, worst leaf {gr['worst']:.3g} "
+        "of its norm apart; most: " + "; ".join(
+            f"{n} {r:.3g}" for r, n in gr["most"]))
+    if not gr["worst"] <= MESH_GRAD_BAR:
+        faults.append("a gradient leaf")
+    if res["world"] == 1 and gr["bit_equal"] != gr["n_leaves"]:
+        faults.append("a gradient leaf on the 1 x 1 mesh")
+    log(f"{head}: parameters after the last step {pa['over_update']:.3g} "
+        f"of the plain update apart (most: " + "; ".join(
+            f"{n} {r:.3g}" for r, n in pa["most"])
+        + f"); at most {pa['abs_err']:.3g} ({pa['err_in_lr']:.2f} lr); "
+        f"{pa['share_off']:.3%} of elements differ, {pa['bit_equal']} of "
+        f"{pa['n_leaves']} leaves bit-equal; peak GiB per card "
+        + ", ".join(f"{g:.2f}" for g in sh["peak_gib"])
+        + f" (one card unsharded {plain['peak_gib']:.2f}); "
+        f"{sh['moments_data_sharded']} moment leaves sharded over data")
+    if not pa["over_update"] <= MESH_UPDATE_BAR:
+        faults.append("the parameters")
+    log(f"{head}: seconds by part (rank 0) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res["part_s"].items()))
+    log(f"{head}: save under the mesh {res['save_ms']:.0f} ms, restore "
+        f"{res['restore_ms']:.0f} ms, re-placed on "
+        f"{'x'.join(map(str, res['remesh']['onto']))} "
+        f"bit-equal {res['remesh']['bit_equal']}")
+    if not res["remesh"]["bit_equal"]:
+        faults.append("the checkpoint re-placed on the transposed mesh")
+    for mode, d in res["dp"].items():
+        log(f"{head}: DP grads over data ({mode}): loss {d['loss']:.6f}, "
+            f"grads_fn {d['grads_fn_ms']:.1f} ms, wire bytes "
+            f"{d['wire_bytes']:.6g} (analytic), reduction ms "
+            + ", ".join(f"{t:.2f}" for t in d["reduce_ms"])
+            + (" (int32 carrier)" if mode == "compressed" else ""))
+    faults += [f"{k} launched on the training path" for k in LM_KERNELS
+               if res["launches_total"].get(k, 0)]
+    if faults:
+        raise AssertionError(f"mesh {shape} {what}: " + ", ".join(faults)
+                             + " off the one-card step")
+
+
+def mesh_phase(seed: int, kernels: list, card: str) -> dict:
+    """Phase 14, the LM over a mesh, one process per visible card (NCCL,
+    ``torch.cuda.set_device(rank)`` before init; one card is a 1 x 1
+    mesh, still through DTensor and NCCL): gemma2-2b at its full config
+    on phase 12's shape, two sharded train steps (parameters by
+    ``param_pspecs``, moments by ZeRO-1, the batch over the data axes)
+    against the same two steps unsharded on card 0 -- loss, grad norm,
+    the first batch's gradients and the parameters within the bars
+    (:data:`MESH_GRAD_BAR` and its neighbours) -- with each card's peak
+    GiB and the step ms; a save under the mesh restored and re-placed on
+    the transposed mesh, bit-equal; ``make_dp_train_grads`` over the
+    data axis compressed and plain, their ``wire_bytes`` and the
+    reductions' ms.  No kernel launches on this path (training runs the
+    plain forms): the counters, zeroed before the sharded steps, are
+    read after the phase's last run."""
+    t_phase = time.perf_counter()
+    res = run_mesh(os.path.join(ROOT, "build", "mesh"), seed)
+    check_mesh(res, card, f"{MESH_ARCH} full")
+    by_name = {k["name"]: k for k in kernels}
+    for k in LM_KERNELS:
+        by_name[k]["mesh_launches"] = res["launches_total"].get(k, 0)
+    res["phase_s"] = time.perf_counter() - t_phase
+    by_name["flash_attention"]["mesh"] = res
+    log(f"{card} | phase 14: {res['phase_s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3671,6 +4087,8 @@ def main(argv=None) -> int:
     log(f"{smi} | the phases before 13: {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
     family_phase(args.seed, torch.device("cuda"), kernels, smi)
+    torch.cuda.empty_cache()
+    mesh_phase(args.seed, kernels, smi)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

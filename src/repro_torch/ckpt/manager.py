@@ -16,6 +16,12 @@ Mirrors ``repro/ckpt/manager.py``.  Two concerns, kept apart:
    returns how long the PFS took to absorb it (sim seconds).
 
 ``restore_latest()`` and the pipeline cursor give exact-step resume.
+
+Under a mesh (DTensor parameters or moments) every rank gathers each
+leaf whole (``full_tensor()``, one leaf at a time, to the host), rank 0
+alone writes the file, and every rank waits for it at a barrier: the
+format is mesh-agnostic, so :func:`reshard_checkpoint` places a restored
+tree onto a mesh of another shape.
 """
 
 from __future__ import annotations
@@ -24,10 +30,12 @@ import json
 import os
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.convert import (lm_params_from_numpy, lm_params_to_numpy,
                                  opt_state_from_numpy, opt_state_to_numpy)
-from repro_torch.train.optimizer import tree_leaves
+from repro_torch.distributed.constrain import full, is_dtensor
+from repro_torch.train.optimizer import tree_leaves, tree_map
 
 
 def _flatten(tree, prefix="", out=None):
@@ -106,11 +114,29 @@ class CheckpointManager:
     def save(self, step: int, params, opt_state=None,
              extra: dict | None = None, through_pfs: bool = True) -> str:
         cfg = self._model_cfg()
+        path = os.path.join(self.dir, f"ckpt_{step:08d}.npz")
+        sharded = any(is_dtensor(t) for t in tree_leaves(params))
+        if sharded:
+            params = tree_map(lambda t: full(t).cpu(), params)
+            if opt_state is not None:
+                opt_state = tree_map(lambda t: full(t).cpu(), opt_state)
+            if dist.get_rank() != 0:
+                dist.barrier()
+                return path
+        try:
+            self._write(cfg, path, step, params, opt_state, extra,
+                        through_pfs)
+        finally:
+            if sharded:
+                dist.barrier()
+        return path
+
+    def _write(self, cfg, path, step, params, opt_state, extra,
+               through_pfs) -> None:
         flat = _flatten({
             "params": lm_params_to_numpy(cfg, params),
             "opt": ({} if opt_state is None
                     else opt_state_to_numpy(cfg, opt_state))})
-        path = os.path.join(self.dir, f"ckpt_{step:08d}.npz")
         tmp = path + ".tmp.npz"
         np.savez(tmp, **flat)
         meta = {"step": step, "extra": extra or {}}
@@ -122,7 +148,6 @@ class CheckpointManager:
             nbytes = sum(v.nbytes for v in flat.values())
             self.pfs_write(nbytes)
         self._gc()
-        return path
 
     def pfs_write(self, nbytes: float) -> float:
         """Push the checkpoint bytes through each host's client write path;
@@ -194,3 +219,12 @@ class CheckpointManager:
             meta = os.path.join(self.dir, f.replace(".npz", ".npz.meta"))
             if os.path.exists(meta):
                 os.remove(meta)
+
+
+def reshard_checkpoint(params, new_mesh, pspecs):
+    """Elastic re-mesh: place a restored tree (plain tensors, the same on
+    every rank) onto ``new_mesh`` by the spec tree ``pspecs`` (validated
+    for that mesh); each rank keeps its own shards."""
+    from repro_torch.distributed.sharding import distribute
+
+    return distribute(params, new_mesh, pspecs)

@@ -1,11 +1,41 @@
 """Mesh construction for the port's launchers.
 
-The fleet part of the reference's ``repro/launch/mesh.py``: a function,
-never a module-level constant, so importing this module touches no
-device.
+Mirrors ``repro/launch/mesh.py``: functions, never module-level
+constants, so importing this module touches no device.  The LM's mesh
+is a ``DeviceMesh`` over the process group the caller initialised (one
+process per card, NCCL; ``gloo`` on the CPU when the caller asks for
+it); the fleet mesh is a tuple of devices in one process.
 """
 
 from __future__ import annotations
+
+
+def make_test_mesh(n_data: int = 2, n_model: int = 4, *,
+                   multi_pod: bool = False, device_type: str = "cuda"):
+    """A ``("data", "model")`` mesh, or ``("pod", "data", "model")`` with
+    2 pods, over the initialised default process group, whose world size
+    must be the mesh's size (raises otherwise; never a smaller mesh)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, n_data, n_model) if multi_pod else (n_data, n_model)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    size = 1
+    for n in shape:
+        size *= n
+    if not dist.is_initialized():
+        raise RuntimeError("make_test_mesh: initialise the process group "
+                           "(one process per device) first")
+    if dist.get_world_size() != size:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
+                         f"{size} processes, the group has "
+                         f"{dist.get_world_size()}")
+    if device_type == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_test_mesh: no CUDA device is visible "
+                               "(pass device_type='cpu' for gloo)")
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def make_fleet_mesh(n_devices: int | None = None) -> tuple:

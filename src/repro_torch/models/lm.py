@@ -14,6 +14,8 @@ Entry points:
     init_params                        parameters (shapes and init
                                        formulas of the reference, drawn
                                        from a torch.Generator)
+    abstract_params                    the same tree on the meta device
+                                       (shapes and dtypes, no memory)
     forward_train                      full-sequence activations through
                                        the plain training forms (autograd)
     loss_fn                            sequence-chunked cross-entropy (never
@@ -32,6 +34,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.constrain import (layout, local_map,
+                                               model_axis_size)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
@@ -87,6 +91,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
     return params
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """:func:`init_params`'s tree on the ``meta`` device: the shapes and
+    dtypes the sharding rules read, at any size, with no storage."""
+    return init_params(cfg, None, torch.device("meta"))
+
+
 def to_device(tree, device):
     """A parameter tree or cache (dicts, lists, tensors) on ``device``."""
     if isinstance(tree, dict):
@@ -99,16 +109,26 @@ def to_device(tree, device):
 # --------------------------------------------------------------------- #
 # embedding / head
 # --------------------------------------------------------------------- #
+def _lookup(table, tokens, n_codebooks: int):
+    if n_codebooks:
+        x = 0
+        for k in range(n_codebooks):
+            x = x + table[k][tokens[..., k]]
+        return x
+    return table[tokens]
+
+
 def embed_tokens(params, tokens, cfg: ModelConfig, img_embeds=None):
     """tokens (B, S), or (B, S, K) for a codebook model (the K codebooks'
     embeddings summed in order, in the weights' dtype); the text scaled,
-    then ``img_embeds`` (B, I, D) prepended."""
-    if cfg.num_codebooks:
-        x = 0
-        for k in range(cfg.num_codebooks):
-            x = x + params["embed"][k][tokens[..., k]]
-    else:
-        x = params["embed"][tokens]
+    then ``img_embeds`` (B, I, D) prepended.  Under a mesh the lookup
+    runs on each rank's rows against the whole (gathered) table, whose
+    gradient is then a partial sum over the data axes."""
+    table = params["embed"]
+    tok_axes = ("dp",) + (None,) * (tokens.dim() - 1)
+    x = local_map(lambda t, i: _lookup(t, i, cfg.num_codebooks),
+                  layout("dp", None, None), (layout(), layout(*tok_axes)),
+                  (layout(partial=("dp",)), layout(*tok_axes)))(table, tokens)
     if cfg.scale_embeddings:   # the scale rounded to x's dtype first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -120,10 +140,17 @@ def embed_tokens(params, tokens, cfg: ModelConfig, img_embeds=None):
 def logits_for(params, x, cfg: ModelConfig):
     """Float32 logits for a (B, S', D) activation slice: (B, S', V), or
     (B, S', K, V) for a codebook model."""
-    if cfg.num_codebooks:
+    if cfg.num_codebooks:   # under a mesh on each rank's rows and vocab
         h = (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
              else params["head"])
-        out = torch.einsum("bsd,kdv->bskv", x, h)
+        m = model_axis_size()
+        va = "model" if m and cfg.vocab_size % m == 0 else None
+        rows, hv = ("dp", None, None), (None, None, va)
+        out = local_map(lambda x, h: torch.einsum("bsd,kdv->bskv", x, h),
+                        layout("dp", None, None, va),
+                        (layout(*rows), layout(*hv)),
+                        (layout(*rows, partial=(va,)),
+                         layout(*hv, partial=("dp",))))(x, h)
     else:
         out = x @ (params["embed"].T if cfg.tie_embeddings
                    else params["head"])
@@ -196,14 +223,29 @@ def forward_train(params, tokens, cfg: ModelConfig, img_embeds=None,
     return apply_norm(x, params["final_norm"], cfg), aux
 
 
-def _chunk_nll(params, xi, yi, cfg):
-    """Summed negative log-likelihood of one sequence chunk, and its
-    count of valid (label >= 0) positions (and codebooks)."""
-    lg = logits_for(params, xi, cfg)                   # (B, C, [K,] V) f32
+def _nll(lg, yi):
     lse = torch.logsumexp(lg, dim=-1)
     valid = yi >= 0
     tgt = torch.gather(lg, -1, torch.clamp_min(yi, 0)[..., None])[..., 0]
     return torch.where(valid, lse - tgt, 0.0).sum(), valid.sum()
+
+
+def _chunk_nll(params, xi, yi, cfg):
+    """Summed negative log-likelihood of one sequence chunk, and its
+    count of valid (label >= 0) positions (and codebooks).  Under a mesh
+    the (vocab-sharded) logits are gathered over 'model' and each rank
+    reduces its own rows: both sums are partial over the data axes."""
+    lg = logits_for(params, xi, cfg)                   # (B, C, [K,] V) f32
+    rows = ("dp",) + (None,) * (yi.dim() - 1)
+    part = layout(partial=("dp",))
+    return local_map(_nll, (part, part),
+                     (layout(*rows, None), layout(*rows)))(lg, yi)
+
+
+def _rows(fn, t):
+    """``fn(t)`` on each rank's rows of a batch-sharded ``t``."""
+    axes = ("dp",) + (None,) * (t.dim() - 1)
+    return local_map(fn, layout(*axes), (layout(*axes),))(t)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, seq_chunk: int = 512,
@@ -227,10 +269,10 @@ def loss_fn(params, batch, cfg: ModelConfig, seq_chunk: int = 512,
     b, s = x.shape[:2]
     seq_chunk = min(seq_chunk, s)
     pad = -s % seq_chunk
-    if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        y = torch.nn.functional.pad(y, (0, 0) * (y.dim() - 2) + (0, pad),
-                                    value=-1)
+    if pad:     # on each rank's rows under a mesh
+        x = _rows(lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad)), x)
+        y = _rows(lambda t: torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad), value=-1), y)
     tot = x.new_zeros((), dtype=torch.float32)
     cnt = torch.zeros((), dtype=torch.int64, device=x.device)
     for c0 in range(0, s + pad, seq_chunk):

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.constrain import (layout, local_map,
+                                               model_axis_size)
 from repro_torch.kernels.mamba_scan.ops import selective_scan
 from repro_torch.models.layers import causal_conv1d, init_normal
 
@@ -61,28 +63,44 @@ def mamba_prefill(x, p, cfg):
     return y @ p["out_proj"], {"conv": conv.float(), "ssm": h}
 
 
+def _scan(uf, df, A, bf, cf, D):
+    """The float32 recurrence over the steps of (B, S, Di) inputs."""
+    h = uf.new_zeros((uf.shape[0], uf.shape[2], A.shape[1]))
+    ys = []
+    for t in range(uf.shape[1]):
+        u_t, d_t = uf[:, t], df[:, t]
+        h = torch.exp(d_t[..., None] * A[None]) * h \
+            + (d_t * u_t)[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]) + D[None] * u_t)
+    return torch.stack(ys, dim=1)
+
+
 def mamba_block(x, p, cfg):
     """The training form (no state), the reference's ``mamba_block``.
     x: (B, S, D) -> (B, S, D).  Each step updates the float32 state
     ``h = exp(dt A) h + (dt u) B`` and emits ``y = h . C + D u``.  The
     reference scans in 512-step chunks, the state carried across them,
     which bounds its scan's memory; one loop over the steps is the same
-    arithmetic."""
+    arithmetic.  Under a mesh the loop runs on each rank's rows and
+    channels (:func:`repro_torch.distributed.constrain.local_map`), B and
+    C whole on every rank: the gradients of A and D are then partial
+    over the data axes, those of B and C over the channels' axis."""
     u, z = (x @ p["in_proj"]).chunk(2, dim=-1)             # (B, S, Di) each
     u, _ = causal_conv1d(u, p["conv_w"])
     u = F.silu(u)
     delta, b_in, c_in = _ssm_inputs(u, p, cfg)
     A = -torch.exp(p["A_log"])
-    uf, df, bf, cf = (t.float() for t in (u, delta, b_in, c_in))
-    h = uf.new_zeros((x.shape[0], cfg.d_inner, cfg.ssm_state))
-    ys = []
-    for t in range(x.shape[1]):
-        u_t, d_t = uf[:, t], df[:, t]
-        h = torch.exp(d_t[..., None] * A[None]) * h \
-            + (d_t * u_t)[..., None] * bf[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t])
-                  + p["D"][None] * u_t)
-    y = torch.stack(ys, dim=1).to(x.dtype) * F.silu(z)
+    m = model_axis_size()
+    ch = "model" if m and cfg.d_inner % m == 0 else None
+    rows, bc = ("dp", None, ch), ("dp", None, None)
+    ins = [layout(*rows), layout(*rows), layout(ch, None), layout(*bc),
+           layout(*bc), layout(ch)]
+    grads = ins[:2] + [layout(ch, None, partial=("dp",)),
+                       layout(*bc, partial=(ch,)),
+                       layout(*bc, partial=(ch,)), layout(ch, partial=("dp",))]
+    y = local_map(_scan, layout(*rows), tuple(ins), tuple(grads))(
+        u.float(), delta.float(), A, b_in.float(), c_in.float(), p["D"])
+    y = y.to(x.dtype) * F.silu(z)
     return y @ p["out_proj"]
 
 

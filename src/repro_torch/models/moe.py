@@ -24,6 +24,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.constrain import (constrain, layout,
+                                               local_map, model_axis_size)
 from repro_torch.models.layers import act_fn, init_mlp, init_normal, mlp
 
 CAPACITY_FACTOR = 1.25
@@ -70,20 +72,16 @@ def route(xt, router, k: int, n_experts: int, capacity: int):
                 keep=rank < capacity, oh=oh)
 
 
-def moe_mlp(x, p, cfg, capacity_factor: float = CAPACITY_FACTOR):
-    """x (B, S, D) -> (out (B, S, D), aux), on x's device."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    ep = max(cfg.n_experts_pad, e)
-    t = b * s
-    g = n_groups(cfg, t)
-    tl = t // g
-    cap = int(capacity_factor * k * tl / e) + 1
-    xt = x.reshape(g, tl, d)
-    r = route(xt, p["router"], k, e, cap)
+def _dispatch(xt, router, k: int, e: int, ep: int, cap: int):
+    """Route the groups ``xt`` (g, tl, D) and fill their expert buffer
+    (g, E_pad, C, D).  Returns the buffer, each assignment's ``slot``
+    and ``keep`` and its gate (g, tl * k), and the router probabilities
+    and one-hot the aux loss reads."""
+    g, tl, d = xt.shape
+    r = route(xt, router, k, e, cap)
     flat_e, keep = r["idx"].reshape(g, tl * k), r["keep"]
     flat_g = r["gates"].reshape(g, tl * k)
-    dev = x.device
+    dev = xt.device
     gi = torch.arange(g, device=dev)[:, None]
     tok = gi * tl + torch.arange(tl, device=dev).repeat_interleave(k)[None]
 
@@ -93,25 +91,72 @@ def moe_mlp(x, p, cfg, capacity_factor: float = CAPACITY_FACTOR):
     slot = (gi * ep + flat_e) * cap + r["rank"]
     spare = g * ep * cap
     slot = torch.where(keep, slot, spare)
-    buf = x.new_zeros((spare + 1, d))
-    buf[slot.reshape(-1)] = x.reshape(t, d)[tok.reshape(-1)]
-    buf = buf[:spare].reshape(g, ep, cap, d)
+    buf = xt.new_zeros((spare + 1, d))
+    buf[slot.reshape(-1)] = xt.reshape(g * tl, d)[tok.reshape(-1)]
+    return (buf[:spare].reshape(g, ep, cap, d), slot, keep, flat_g,
+            r["probs"], r["oh"])
 
-    a = act_fn(cfg.act)
+
+def _experts(buf, w_gate, w_up, w_down, act: str):
+    """Every expert's MLP over its rows of the (g, E, C, D) buffer."""
+    g, ep, cap, d = buf.shape
+    a = act_fn(act)
     xe = buf.transpose(0, 1).reshape(ep, g * cap, d)        # per expert
-    h = a(torch.bmm(xe, p["gate"])) * torch.bmm(xe, p["up"])
-    out_e = torch.bmm(h, p["down"])                         # (E_pad, g*C, D)
-    out_buf = out_e.reshape(ep, g, cap, d).transpose(0, 1).reshape(-1, d)
+    h = a(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+    out_e = torch.bmm(h, w_down)                            # (E, g*C, D)
+    return out_e.reshape(ep, g, cap, d).transpose(0, 1)
 
-    # combine: each token's k choices summed in choice order, float32
+
+def _combine(out_buf, slot, keep, flat_g, k: int, s: int):
+    """Each token's k choices summed in choice order, float32; (B, S, D)
+    rows in the buffer's dtype."""
+    g, _, _, d = out_buf.shape
+    tl = slot.shape[1] // k
     safe = torch.where(keep, slot, 0).reshape(-1)
-    contrib = (out_buf[safe].reshape(g, tl * k, d)
-               * flat_g[..., None].to(x.dtype)
-               * keep[..., None].to(x.dtype)).float().reshape(g, tl, k, d)
+    contrib = (out_buf.reshape(-1, d)[safe].reshape(g, tl * k, d)
+               * flat_g[..., None].to(out_buf.dtype)
+               * keep[..., None].to(out_buf.dtype)).float().reshape(
+                   g, tl, k, d)
     acc = contrib[:, :, 0]
     for j in range(1, k):
         acc = acc + contrib[:, :, j]
-    out = acc.to(x.dtype).reshape(b, s, d)
+    return acc.to(out_buf.dtype).reshape(-1, s, d)
+
+
+def moe_mlp(x, p, cfg, capacity_factor: float = CAPACITY_FACTOR):
+    """x (B, S, D) -> (out (B, S, D), aux), on x's device.
+
+    Under a mesh each stage runs on local shards
+    (:func:`repro_torch.distributed.constrain.local_map`): the routing,
+    dispatch and combine on each rank's groups (batch over the data
+    axes), the experts on its groups and, when they divide 'model', its
+    experts (expert parallelism, the reference's layout), the experts'
+    outputs gathered over 'model' for the combine."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    ep = max(cfg.n_experts_pad, e)
+    t = b * s
+    g = n_groups(cfg, t)
+    tl = t // g
+    cap = int(capacity_factor * k * tl / e) + 1
+    xt = constrain(x.reshape(g, tl, d), "dp", None, None)
+    m = model_axis_size()
+    ea = "model" if m and ep % m == 0 else None
+    grp, grp2 = layout("dp", None, None), layout("dp", None)
+    buf, slot, keep, flat_g, probs, oh = local_map(
+        lambda xt, router: _dispatch(xt, router, k, e, ep, cap),
+        (layout("dp", None, None, None), grp2, grp2, grp2, grp, grp),
+        (grp, layout()), (grp, layout(partial=("dp",))))(xt, p["router"])
+    w_axes = (ea, None, None)
+    ex = layout("dp", ea, None, None)
+    out_buf = local_map(
+        lambda *a: _experts(*a, cfg.act), ex, (ex,) + (layout(*w_axes),) * 3,
+        (ex,) + (layout(*w_axes, partial=("dp",)),) * 3)(
+            buf, p["gate"], p["up"], p["down"])
+    out = local_map(
+        lambda *a: _combine(*a, k, s), grp,
+        (layout("dp", None, None, None), grp2, grp2, grp2))(
+            out_buf, slot, keep, flat_g)
 
     if cfg.n_shared_experts:
         xf = x.reshape(t, d)
@@ -120,6 +165,6 @@ def moe_mlp(x, p, cfg, capacity_factor: float = CAPACITY_FACTOR):
                      * gate_sh[:, None].to(x.dtype)).reshape(b, s, d)
 
     # Switch-style load-balance loss; dropped assignments count too
-    me = r["probs"].mean(dim=(0, 1))
-    ce = r["oh"].sum(dim=(0, 1)).float() / (t * k)
+    me = probs.mean(dim=(0, 1))
+    ce = oh.sum(dim=(0, 1)).float() / (t * k)
     return out, e * torch.sum(me * ce)

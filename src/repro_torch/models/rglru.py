@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.constrain import (layout, local_map,
+                                               model_axis_size)
 from repro_torch.kernels.rglru_scan.ops import rglru
 from repro_torch.models.layers import causal_conv1d, gelu, init_normal
 
@@ -81,11 +83,16 @@ def rglru_assoc_scan(x, a):
 
 def recurrent_block(x, p, cfg):
     """The training form (no state), the reference's ``recurrent_block``.
-    x: (B, S, D) -> (B, S, D)."""
+    x: (B, S, D) -> (B, S, D).  Under a mesh the scan runs on each rank's
+    rows and channels (:func:`repro_torch.distributed.constrain.local_map`)."""
     gate = gelu((x @ p["in_gate"]).float()).to(x.dtype)
     z, _ = causal_conv1d(x @ p["in_lin"], p["conv_w"])
     a, i = _gates(z, p)
-    h = rglru_assoc_scan(i * z.float(), a)                 # (B, S, W) f32
+    m = model_axis_size()
+    rows = ("dp", None, "model" if m and cfg.lru_width_ % m == 0 else None)
+    h = local_map(rglru_assoc_scan, layout(*rows),
+                  (layout(*rows), layout(*rows)))(
+        i * z.float(), a)                                  # (B, S, W) f32
     return (h.to(x.dtype) * gate) @ p["out_proj"]
 
 

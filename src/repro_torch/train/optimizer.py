@@ -14,6 +14,13 @@ the tail layers and ``final_norm`` are not (recurrentgemma's two tail
 layers show the difference).  :func:`decay_mask` reproduces that rule
 on the port's flat layer list (ROADMAP Queue 3, reference fault 5:
 kept, not fixed).
+
+On a mesh the parameters are DTensors and the moments DTensors placed
+by :func:`repro_torch.distributed.sharding.zero1_pspecs` (ZeRO-1:
+sharded over the data axes too).  Each gradient is first laid out as
+its moment -- a reduce-scatter of the data-partial gradient -- so the
+norm, the moments and the update run on each rank's shard, and the
+updated parameter is all-gathered back to its own layout.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch.distributed.constrain import is_dtensor, laid_out_as
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +54,21 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """``leaves`` (in :func:`tree_leaves` order) in ``tree``'s
+    structure: the inverse of :func:`tree_leaves`."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+    return build(tree)
 
 
 def tree_map(fn, tree):
@@ -79,14 +103,35 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def init_opt_state(params) -> dict:
+def init_opt_state(params, specs=None) -> dict:
     """``step`` (0-dim int32) and zero float32 moments ``m`` and ``v``
-    shaped like ``params``, on its device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    shaped like ``params``, on its device.
+
+    DTensor parameters get DTensor moments on their mesh, placed by the
+    spec tree ``specs`` (``zero1_pspecs``, validated) or, without one,
+    as each parameter; every rank allocates its own shard only."""
+    if specs is None:
+        def zeros(p):
+            if is_dtensor(p):
+                return _dt_zeros(p, p.placements)
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        m, v = tree_map(zeros, params), tree_map(zeros, params)
+    else:
+        from repro_torch.distributed.sharding import map_specs, placements
+
+        def zeros(spec, p):
+            return _dt_zeros(p, placements(p.device_mesh, spec))
+        m, v = map_specs(zeros, specs, params), map_specs(zeros, specs, params)
     dev = tree_leaves(params)[0].device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
-            "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+            "m": m, "v": v}
+
+
+def _dt_zeros(p, placements):
+    from torch.distributed.tensor import zeros
+
+    return zeros(p.shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                 placements=placements)
 
 
 def global_norm(leaves) -> torch.Tensor:
@@ -102,6 +147,9 @@ def adamw_update(params, grads: list, opt_state: dict, cfg: AdamWConfig,
     :func:`tree_leaves` order (``decay`` from :func:`decay_mask`).
     Returns (params, opt_state, metrics), the same objects updated."""
     step = opt_state["step"] + 1
+    moments = list(zip(tree_leaves(opt_state["m"]),
+                       tree_leaves(opt_state["v"])))
+    grads = [laid_out_as(g, m) for g, (m, _) in zip(grads, moments)]
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
                             1.0)
@@ -109,18 +157,18 @@ def adamw_update(params, grads: list, opt_state: dict, cfg: AdamWConfig,
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
-    for p, g, m, v, dec in zip(tree_leaves(params), grads,
-                               tree_leaves(opt_state["m"]),
-                               tree_leaves(opt_state["v"]), decay):
+    for p, g, (m, v), dec in zip(tree_leaves(params), grads, moments,
+                                 decay):
         g = g.float() * scale
         m.mul_(b1).add_((1 - b1) * g)          # b1 m + (1 - b1) g
         gg = (1 - b2) * g
         v.mul_(b2).add_(gg.mul_(g))            # b2 v + ((1 - b2) g) g
         del g, gg
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        pf = p.float()
+        pf = laid_out_as(p.float(), m)
         if dec:     # decoupled weight decay (the reference's leaf rule)
             delta = delta + cfg.weight_decay * pf
-        p.copy_(pf - lr * delta)               # rounds to p's dtype
+        # rounds to p's dtype, then back to p's layout
+        p.copy_(laid_out_as((pf - lr * delta).to(p.dtype), p))
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -6,12 +6,27 @@ reference's ``x.reshape((grad_accum, -1) + x.shape[1:])[i]``, its
 gradients accumulate in float32, and the loss and gradients are
 averaged over the microbatches, so live activation memory scales with
 the microbatch while the arithmetic stays the reference's.
+
+The same step runs over a mesh when the parameters are DTensors
+(placed by ``param_pspecs``, the moments by ``zero1_pspecs`` through
+``init_opt_state(params, specs)``) and the batch is a DTensor sharded by
+``batch_pspec``: the step then runs under the mesh
+(:func:`repro_torch.distributed.constrain.use_mesh`, so the models'
+constraints act) and with DTensor's implicit replication, so the plain
+host-side tensors the models and AdamW make (positions, masks, the
+schedule's scalars) count as replicated.  Each microbatch is laid out
+over the data axes again after it is cut, so it holds the reference's
+rows.  The metrics come back as plain tensors on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from repro_torch.distributed.constrain import (constrain, full, is_dtensor,
+                                               use_mesh)
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
@@ -31,41 +46,57 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         loss = lm.loss_fn(params, batch, cfg, remat=remat)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
+    def micro(x, i):
+        x = x.reshape((grad_accum, -1) + tuple(x.shape[1:]))[i]
+        return constrain(x, "dp", *(None,) * (x.dim() - 1))
+
     def train_step(params, opt_state, batch):
         nonlocal decay
         leaves = tree_leaves(params)
         if decay is None:
             decay = decay_mask(cfg, params)
-        with torch.enable_grad():
+        with _on_mesh(leaves[0]), torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
             try:
                 if grad_accum == 1:
                     loss, grads = value_and_grad(params, leaves, batch)
                 else:
-                    micro = lambda x, i: x.reshape(  # noqa: E731
-                        (grad_accum, -1) + tuple(x.shape[1:]))[i]
                     tot = torch.zeros((), dtype=torch.float32,
                                       device=leaves[0].device)
-                    grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device) for p in leaves]
                     for i in range(grad_accum):
                         l_i, g_i = value_and_grad(params, leaves, {
                             k: micro(v, i) for k, v in batch.items()})
                         tot = tot + l_i
-                        grads = [a + g.float() for a, g in zip(grads, g_i)]
+                        # float32 sums from the first microbatch's (0 + g
+                        # is g): a DTensor gradient stays data-partial
+                        grads = ([g.float() for g in g_i] if i == 0 else
+                                 [a + g.float() for a, g in zip(grads, g_i)])
                         del g_i
                     loss = tot / grad_accum
                     grads = [g / grad_accum for g in grads]
             finally:
                 for p in leaves:
                     p.requires_grad_(False)
-        params, opt_state, metrics = adamw_update(params, list(grads),
-                                                  opt_state, opt_cfg, decay)
+            params, opt_state, metrics = adamw_update(
+                params, list(grads), opt_state, opt_cfg, decay)
         metrics["loss"] = loss
-        return params, opt_state, metrics
+        return params, opt_state, {k: full(v) for k, v in metrics.items()}
 
     return train_step
+
+
+def _on_mesh(leaf):
+    """The mesh context of a DTensor parameter (its mesh active, plain
+    tensors replicated implicitly); nothing for a plain one."""
+    if not is_dtensor(leaf):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(use_mesh(leaf.device_mesh))
+    stack.enter_context(implicit_replication())
+    return stack
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):

@@ -1532,3 +1532,35 @@ def test_several_card_mesh_equals_unsharded(cuda):
     assert _lab_records(sharded.decisions) == _lab_records(fused.decisions)
     assert torch.equal(sharded_sim.state.ctr_bytes_done,
                        fused_sim.state.ctr_bytes_done)
+
+
+def test_lm_mesh_on_every_card_equals_one_card(cuda, tmp_path):
+    """On a host with two or more cards, one process a card over NCCL
+    (``chip_smoke.py``'s phase 14 machinery): the gemma2-2b smoke config
+    sharded (data x model over every card; ZeRO-1 moments) against the
+    same two steps on card 0 alone, within phase 14's bars (each
+    first-batch gradient leaf against its norm, loss, grad norm, the
+    parameters over the update), a save under the mesh re-placed on
+    the transposed mesh bit-equal, and
+    ``make_dp_train_grads`` compressed and plain over the data axis.
+    With four cards, the 2 x 2 mesh at gemma2-2b's full width too."""
+    import pathlib
+    import sys
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+
+    runs = [("gemma2-2b smoke", dict(smoke=True, batch=4, seq_len=64))]
+    if n >= 4:
+        runs.append(("gemma2-2b full", {}))
+    for what, kw in runs:
+        res = chip_smoke.run_mesh(str(tmp_path / what.replace(" ", "_")),
+                                  0, **kw)
+        assert res["world"] == n
+        chip_smoke.check_mesh(res, torch.cuda.get_device_name(0), what)
+        assert res["dp"]["compressed"]["wire_bytes"] * 4 == \
+            res["dp"]["plain"]["wire_bytes"]

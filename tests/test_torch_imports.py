@@ -121,6 +121,37 @@ def test_lm_training_slice_modules_are_probed():
             "repro_torch.kernels.pow_cr.ref"} <= names
 
 
+def test_distributed_slice_modules_are_probed():
+    """The walk above reaches the LM's distributed modules, and the LM
+    half of the sharding module is there."""
+    import pkgutil
+
+    import repro_torch
+    from repro_torch.distributed import sharding
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.distributed.compression",
+            "repro_torch.distributed.constrain",
+            "repro_torch.distributed.sharding",
+            "repro_torch.launch.mesh", "repro_torch.ckpt.manager"} <= names
+    for fn in ("dp_axes", "batch_pspec", "param_pspecs", "validate_pspecs",
+               "zero1_pspecs", "cache_pspecs", "named", "distribute"):
+        assert callable(getattr(sharding, fn)), fn
+
+
+def test_lm_mesh_needs_a_process_group():
+    """``make_test_mesh`` refuses to run before the process group is
+    initialised, and never builds a smaller mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised here")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_test_mesh(1, 1, device_type="cpu")
+
+
 def test_no_jax_or_reference_import_in_sources():
     files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in files:

@@ -76,7 +76,7 @@ Phases, in order; any failure exits non-zero:
    float32 on the card and on the CPU (plain versions), the same
    weights: identical greedy tokens, logits within 1e-4;
 9. the Scenario Lab, with the model phase 3 trained: ``evaluate`` of
-   the 12-scenario catalog (25 policy arms each, 10 s at 0.5 s, 4
+   the 12-scenario catalog (25 policy arms each, 5 s at 0.5 s, 4
    buckets) on the host path, the fused loop eager, on CUDA graphs and
    on graphs again (rows identical all four ways, bit for bit; 4
    buckets and 4 dispatches; the wall time, captures and their seconds
@@ -165,7 +165,27 @@ Phases, in order; any failure exits non-zero:
    within the bf16 bar); the seven smoke configs in float32 card vs
    CPU (greedy tokens identical, logits within 1e-4; the loss, every
    gradient and one AdamW step within 1e-4); an MoE smoke config served
-   twice on the card, bit-equal.
+   twice on the card, bit-equal;
+14. the LM over a mesh, one process a visible card (NCCL; one card is a
+   1 x 1 mesh, still through DTensor): gemma2-2b at its full config on
+   phase 12's shape, two sharded train steps (parameters by
+   ``param_pspecs``, ZeRO-1 moments, the batch over the data axes)
+   against the same steps unsharded on card 0 (the first batch's
+   gradients leaf by leaf, bit-equal on 1 x 1; loss, grad norm,
+   parameters over the update), a save under the mesh re-placed on the
+   transposed mesh, the EF-int8 compressed and plain data-parallel
+   gradients and their reductions' ms;
+15. sharded serving: ``serve(..., mesh=...)`` of phase 8's three models
+   at their full configs on phase 8's shape, one process a visible card,
+   every kernel on its rank's local shards (counters zeroed just before
+   each serve and read just after: flash_attention, rglru_scan and
+   selective_scan must launch), on 1 x 1 the prefill logits and greedy
+   tokens bit-equal to phase 8's; prefill s, decode ms a step and peak
+   GiB beside phase 8's; and the records of a CPU child started after
+   the build and held to two of the host's cores, ``launch/dryrun.py``
+   of gemma2-2b's four shapes on both production meshes (256 and 512
+   ranks of a fake process group) at its full config, under
+   ``build/dryrun/``.
 
 It prints one JSON line of kernel results, the ``nvidia-smi`` name and
 power limit, and as its last line
@@ -205,6 +225,9 @@ LEVELS = ((1, False), (1, True), (2, True), (4, True), (8, True))
 
 # what a later phase holds against phase 6's host loop
 MAIN_PATH: dict = {}
+# phase 8's serve outputs by arch (tokens, prefill logits on the host),
+# which phase 15's 1 x 1 mesh serve must equal bit for bit
+SERVED: dict = {}
 
 
 def log(*a):
@@ -1288,6 +1311,9 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 # within this share of the row's RMS.  Rounding P and the output to bf16
 # costs ~1e-2 of it; a key split or tile dropped or added, ~1e-1 and more.
 BF16_ROW_REL = 5e-2
+# the decode form's row log-sum-exp against the plain version's (float32
+# sums of exp of the same bf16 scores, in another order)
+LSE_ATOL = 2e-3
 # each new kernel: the layer kinds that run it
 SERVE_KERNELS = {"flash_attention": {"attn", "attn_local", "moe"},
                  "rglru_scan": {"recurrent"}, "selective_scan": {"mamba"}}
@@ -1326,6 +1352,8 @@ def serving_path(seed: int, dev) -> dict:
         for name, uses in SERVE_KERNELS.items():
             if kinds & uses and counts.get(name, 0) <= 0:
                 raise AssertionError(f"serve {arch} never launched {name}")
+        SERVED[arch] = dict(tokens=toks,
+                            prefill_logits=out["prefill_logits"].cpu())
         runs[arch] = dict(
             params=cfg.param_count(), layers=cfg.n_layers, wall_s=secs,
             prefill_s=out["prefill_s"], decode_s=out["decode_s"],
@@ -1535,6 +1563,14 @@ def check_flash_attention(dev) -> dict:
             raise AssertionError(f"flash_attention {what} float32: two "
                                  "launches differ")
         err32 = _close(got32, attention_ref(qf, kf, vf, **opts), 2e-5, 0.0)
+        lse_err = None
+        if sq == 1:    # the decode form's optional row log-sum-exp
+            o_l, lse = flash_attention_cuda(q, k, v, return_lse=True, **opts)
+            if not torch.equal(o_l, got):
+                raise AssertionError(f"flash_attention {what}: the output "
+                                     "with the log-sum-exp differs")
+            lse_err = _close(lse, attention_ref(q, k, v, return_lse=True,
+                                                **opts)[1], LSE_ATOL, 0.0)
         # decode calls are shorter than their launch cost: their device
         # time comes from a CUDA graph, the eager loop's beside it
         timed = time_ms_graph if sq == 1 else lambda fn: time_ms(fn, 3)
@@ -1564,7 +1600,7 @@ def check_flash_attention(dev) -> dict:
                     bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     max_abs_err=err, max_row_rel_err=rel,
-                    max_abs_err_f32=err32)
+                    max_abs_err_f32=err32, lse_max_abs_err=lse_err)
         cases.append(case)
         log(f"flash_attention[{what}] B={b} Hq={hq} Hkv={hkv} Sq={sq} "
             f"Skv={skv} D={d} window={window} softcap={cap}: bf16 "
@@ -1572,6 +1608,8 @@ def check_flash_attention(dev) -> dict:
             f"{rel:.3e}), float32 {err32:.3e}; kernel "
             f"bf16 ({case['form']}) {case['ms']:.4f} ms, float32 "
             f"({case['form_f32']}) {ms32:.4f} ms"
+            + (f", log-sum-exp |kernel - plain| {lse_err:.3e}"
+               if lse_err is not None else "")
             + (f" (CUDA graph; eager bf16 {case['eager_ms']:.4f} ms a call)"
                if sq == 1 else "") + f", plain bf16 "
             f"{case['plain_ms']:.4f} ms, SDPA "
@@ -1586,7 +1624,8 @@ def check_flash_attention(dev) -> dict:
                 replaces="src/repro/kernels/flash_attention/kernel.py:31",
                 max_abs_err=head["max_abs_err"],
                 tolerance="bf16 atol 3e-2 and each row within "
-                f"{BF16_ROW_REL} of its RMS, float32 atol 2e-5, vs the plain "
+                f"{BF16_ROW_REL} of its RMS, float32 atol 2e-5, the decode "
+                f"form's row log-sum-exp atol {LSE_ATOL}, vs the plain "
                 "version on the same inputs; two launches bit-equal",
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
@@ -1751,7 +1790,9 @@ def serving_phase(seed: int, dev) -> list:
 # ---------------------------------------------------------------------- #
 # phase 9: the Scenario Lab
 # ---------------------------------------------------------------------- #
-LAB_SECONDS, LAB_INTERVAL = 10.0, 0.5     # the CLI's defaults
+# the catalog's seconds cut from the CLI's 10 s to 5 s to keep the smoke
+# inside its limit beside phase 15 (PR 22 ran it at 5 s once)
+LAB_SECONDS, LAB_INTERVAL = 5.0, 0.5
 WIDE_VARIANTS = 1024                      # x 8 interfaces = 8,192
 WIDE_SECONDS = 10.0                       # 20 tuned intervals
 LAB_ROOT = os.path.join(ROOT, "build", "lab_campaign")
@@ -4038,6 +4079,461 @@ def mesh_phase(seed: int, kernels: list, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------- #
+# phase 15: sharded serving (DTensor over NCCL, one process a card) and
+# the roofline dry-run on the production mesh (a CPU child)
+# ---------------------------------------------------------------------- #
+DRYRUN_ARCH = "gemma2-2b"
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun")
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_KEYS = ("flops_per_chip", "hbm_bytes_per_chip", "collective_counts",
+               "collective_bytes_by_kind", "wire_bytes_per_chip",
+               "torch_flops_raw", "argument_bytes_per_chip", "trace_s",
+               "roofline")
+
+
+def start_dryrun():
+    """``launch/dryrun.py`` for gemma2-2b's four shapes on both
+    production meshes at its full config, in a CPU child (no card
+    visible; two cells at a time), its log and records under
+    ``build/dryrun/``; phase 15 waits for it.  The child and its workers
+    are held to the last two of this process's cores (where it has four
+    or more), so the phases' host work keeps the others."""
+    import shutil
+
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    os.makedirs(DRYRUN_OUT)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    log_f = open(os.path.join(DRYRUN_OUT, "dryrun.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCH, "--both-meshes", "--jobs", "2", "--out", DRYRUN_OUT],
+        env=env, stdout=log_f, stderr=subprocess.STDOUT, cwd=ROOT,
+        start_new_session=True)      # its workers die with it: stop_dryrun
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) >= 4:              # before the child spawns its workers
+        os.sched_setaffinity(proc.pid, cores[-2:])
+    proc.cores = cores[-2:] if len(cores) >= 4 else cores
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def stop_dryrun(proc) -> None:
+    """Kill the dry-run child and its worker processes, if still running."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def finish_dryrun(proc, card: str) -> dict:
+    """Wait for :func:`start_dryrun`'s child; every cell's record whole."""
+    from repro_torch.configs.shapes import applicable_shapes
+
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        stop_dryrun(proc)
+    wall = time.perf_counter() - proc.t0
+    with open(os.path.join(DRYRUN_OUT, "dryrun.log")) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"dry-run exited {rc}: {text[-3000:]}")
+    recs = {}
+    for shape in applicable_shapes(DRYRUN_ARCH):
+        for tag in ("pod", "multipod"):
+            with open(os.path.join(DRYRUN_OUT, f"{DRYRUN_ARCH}__{shape}__"
+                                   f"{tag}.json")) as f:
+                rec = json.load(f)
+            missing = [k for k in DRYRUN_KEYS if k not in rec]
+            if missing:
+                raise AssertionError(f"dry-run {shape} {tag}: no {missing}")
+            r = rec["roofline"]
+            log(f"dry-run {DRYRUN_ARCH} {shape} {tag} ({rec['chips']} ranks, "
+                f"CPU, fake group): trace {rec['trace_s']:.1f} s; per rank "
+                f"{rec['flops_per_chip']:.4g} FLOPs, "
+                f"{rec['hbm_bytes_per_chip']:.4g} HBM bytes, "
+                f"{rec['wire_bytes_per_chip']:.4g} wire bytes "
+                f"({rec['collective_counts']}); at the H100 SXM peaks "
+                f"compute {r['compute_s']:.4g} s, memory {r['memory_s']:.4g} "
+                f"s, collective {r['collective_s']:.4g} s: {r['dominant']}")
+            recs[f"{shape}__{tag}"] = rec
+    log(f"{card} | dry-run child: {len(recs)} cells in {wall:.1f} s (wall, "
+        f"beside the card's phases, on cores {proc.cores})")
+    return dict(wall_s=wall, cells=recs)
+
+
+def _serve_mesh_rank(rank: int, world: int, job: dict) -> None:
+    """One rank of phase 15: its card, NCCL, the three serves."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=job["init"], rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=600),
+        device_id=torch.device("cuda", rank))
+    try:
+        dev = torch.device("cuda", rank)
+        mesh = make_test_mesh(*job["shape"])
+        res = {}
+        for arch in job["archs"]:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            out = serve(arch, smoke=False, seed=job["seed"], device=dev,
+                        mesh=mesh, **SERVE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+            peak = [None] * world
+            dist.all_gather_object(
+                peak, torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            res[arch] = dict(prefill_s=out["prefill_s"],
+                             decode_s=out["decode_s"], wall_s=wall,
+                             peak_gib=peak, launches=counts)
+            if rank == 0:
+                torch.save(dict(tokens=out["tokens"],
+                                prefill_logits=out["prefill_logits"].cpu(),
+                                logits=out["logits"].cpu()),
+                           os.path.join(job["dir"], f"{arch}.pt"))
+            del out
+        if rank == 0:
+            with open(job["out"], "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_serve_mesh(build: str, seed: int, archs=SERVE_ARCHS) -> tuple:
+    """Phase 15's serves on every visible card, one process each; rank
+    0's result and its outputs by arch (tokens, prefill and last logits).
+    A failed rank raises here."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    shutil.rmtree(build, ignore_errors=True)
+    os.makedirs(build)
+    job = dict(seed=seed, archs=list(archs), shape=list(mesh_shape(world)),
+               dir=build, init="file://" + os.path.join(build, "init"),
+               out=os.path.join(build, "result.json"))
+    mp.spawn(_serve_mesh_rank, args=(world, job), nprocs=world, join=True)
+    with open(job["out"]) as f:
+        res = json.load(f)
+    outs = {a: torch.load(os.path.join(build, f"{a}.pt"), weights_only=False)
+            for a in archs}
+    return res, outs, mesh_shape(world)
+
+
+# the four-card check (tests/test_torch_cuda.py): (arch, mesh, batch,
+# prompt tokens, cache positions), each served in bf16 and, from the same
+# weights upcast, in float32; batch 1 on 4 x 1 shards the cache's
+# sequence over 'data'
+_N = SERVE["prompt_len"] + SERVE["gen_tokens"]
+SERVE_COMPARE = [(a, m, SERVE["batch"], SERVE["prompt_len"], _N)
+                 for a in SERVE_ARCHS for m in ((2, 2), (1, 4))] + [
+    ("gemma2-2b", (4, 1), 1, 32768 - SERVE["gen_tokens"], 32768)]
+# logits compared per run: the prefill's and 8 decode steps'
+COMPARE_STEPS = 9
+# a float32 serve over the mesh against one card: each logit row within
+# this share of its RMS (the sums' order differs, nothing else)
+F32_ROW_REL = 1e-3
+
+
+def _greedy_steps(params, prompts, cfg, max_len: int, n: int,
+                  feed=None) -> list:
+    """Prefill and ``n - 1`` greedy decode steps through the (sharded)
+    steps -- or fed ``feed``'s tokens (step t's (B, 1) tokens) instead of
+    its own; every step's logits, whole, float32 on the host."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.constrain import full, is_dtensor
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(cfg, max_len), make_decode_step(cfg)
+    logits, cache = prefill(params, prompts)
+    out = [full(logits).cpu()]
+    for i in range(n - 1):
+        if feed is None:
+            tok = logits.argmax(dim=-1)
+        elif is_dtensor(prompts):     # laid out as the prompts are
+            tok = distribute_tensor(feed[i].to(prompts.to_local().device),
+                                    prompts.device_mesh, prompts.placements)
+        else:
+            tok = feed[i].to(prompts.device)
+        logits, cache = decode(params, tok, cache, prompts.shape[1] + i)
+        out.append(full(logits).cpu())
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _compare_inputs(arch: str, b: int, s: int, seed: int, dev, dtype: str):
+    """bf16 weights and prompts from ``seed`` on ``dev`` (the same on
+    every rank); for float32 the same weights upcast."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = lm.init_params(cfg, gen, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=dev)
+    if dtype == "float32":
+        params = _tree_float(params)
+        cfg = dataclasses.replace(cfg, param_dtype="float32")
+    return params, prompts, cfg
+
+
+def _serve_compare_rank(rank: int, world: int, job: dict) -> None:
+    """One rank of the four-card check.  Per (arch, batch, prompt) card 0
+    alone serves greedily in bf16, then in float32 from the same weights
+    upcast, fed the bf16 run's tokens; per case the mesh serves in both
+    dtypes, fed the same tokens, so every step's logits of all four runs
+    follow one token sequence.  Rank 0 saves the logits."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import place_on_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=job["init"], rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=900),
+        device_id=torch.device("cuda", rank))
+    dev = torch.device("cuda", rank)
+    n, seed = job["steps"], job["seed"]
+    try:
+        for i, (arch, shape, b, s, max_len) in enumerate(job["cases"]):
+            one = os.path.join(job["dir"], f"one_{arch}_{b}x{s}.pt")
+            if rank == 0 and not os.path.exists(one):
+                with torch.no_grad():
+                    params, prompts, cfg = _compare_inputs(
+                        arch, b, s, seed, dev, "bfloat16")
+                    lg = _greedy_steps(params, prompts, cfg, max_len, n)
+                    feed = [t.argmax(-1) for t in lg[:-1]]
+                    del params
+                    params, prompts, cfg = _compare_inputs(
+                        arch, b, s, seed, dev, "float32")
+                    lg32 = _greedy_steps(params, prompts, cfg, max_len, n,
+                                         feed=feed)
+                torch.save(dict(bfloat16=lg, float32=lg32, feed=feed), one)
+                del params, prompts, lg, lg32
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+            feed = torch.load(one)["feed"]
+            mesh = make_test_mesh(*shape)
+            res = {}
+            for dt in ("bfloat16", "float32"):
+                params, prompts, cfg = _compare_inputs(arch, b, s, seed, dev,
+                                                       dt)
+                params, prompts, _ = place_on_mesh(params, prompts, None,
+                                                   mesh)
+                with torch.no_grad():
+                    res[dt] = _greedy_steps(params, prompts, cfg, max_len, n,
+                                            feed=feed)
+                del params, prompts
+                gc.collect()
+                torch.cuda.empty_cache()
+            if rank == 0:
+                torch.save(res, os.path.join(job["dir"], f"case{i}.pt"))
+            del res
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _tree_float(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_float(v) for v in tree]
+    return tree.float()
+
+
+def _row_rel(a, w, b: int) -> float:
+    """The worst row's max |a - w| over w's RMS."""
+    a, w = a.reshape(b, -1), w.reshape(b, -1)
+    rms = w.square().mean(-1).sqrt()
+    return float(((a - w).abs().amax(-1) / rms).max())
+
+
+def _compare_steps(mesh: list, one: list, b: int, bars: list) -> dict:
+    """Every step's worst logit row over its RMS against the step's bar,
+    and the greedy tokens: a row's argmax may differ from one card's
+    only where one card's top two lie within that bar of its RMS (a near
+    tie: moving each logit by less than half the bar can swap them)."""
+    import torch
+
+    rels, over, ties, flips = [], [], [], []
+    for t, (a, w) in enumerate(zip(mesh, one)):
+        rels.append(_row_rel(a, w, b))
+        if rels[-1] > bars[t]:
+            over.append(t)
+        ww = w.reshape(b, -1)
+        rms = ww.square().mean(-1).sqrt()
+        top = ww.topk(2, dim=-1).values
+        tie = top[:, 0] - top[:, 1] <= bars[t] * rms
+        if bool(tie.any()):
+            ties.append(t)
+        differ = a.reshape(b, -1).argmax(-1) != ww.argmax(-1)
+        if bool((differ & ~tie).any()):
+            flips.append(t)
+    return dict(row_rel_by_step=rels, worst_row_rel=max(rels),
+                steps_over_bar=over, near_tie_steps=ties,
+                first_near_tie=ties[0] if ties else None,
+                flips_without_tie=flips)
+
+
+def run_serve_compare(build: str, seed: int, cases=None) -> list:
+    """The full-width serves of :data:`SERVE_COMPARE` (or ``cases``) on
+    four cards against card 0 alone, :data:`COMPARE_STEPS` steps each,
+    every run fed one card's bf16 greedy tokens, so that every step is
+    compared.  float32: each logit row within :data:`F32_ROW_REL` of its
+    RMS.  bf16: within :data:`BF16_ROW_REL`, or twice one card's own
+    bf16-vs-float32 distance at that step (the ``floor``) where bf16's
+    rounding alone moves one card further than that.  The greedy tokens
+    identical at every step but where one card's top two lie within the
+    step's bar (a near tie); the first such step is reported.  Logs
+    every case, then raises past the bars."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    cases = cases or SERVE_COMPARE
+    build = os.path.abspath(build)
+    shutil.rmtree(build, ignore_errors=True)
+    os.makedirs(build)
+    job = dict(seed=seed, cases=[list(c) for c in cases], dir=build,
+               steps=COMPARE_STEPS,
+               init="file://" + os.path.join(build, "init"))
+    mp.spawn(_serve_compare_rank, args=(4, job), nprocs=4, join=True)
+    out, faults = [], []
+    for i, (arch, shape, b, s, max_len) in enumerate(cases):
+        r = torch.load(os.path.join(build, f"case{i}.pt"))
+        one = torch.load(os.path.join(build, f"one_{arch}_{b}x{s}.pt"))
+        floors = [_row_rel(w, w32, b) for w, w32 in zip(one["bfloat16"],
+                                                        one["float32"])]
+        bars = {"bfloat16": [max(BF16_ROW_REL, 2 * f) for f in floors],
+                "float32": [F32_ROW_REL] * len(floors)}
+        for dt in ("bfloat16", "float32"):
+            c = _compare_steps(r[dt], one[dt], b, bars[dt])
+            what = (f"{arch} {dt} on {'x'.join(map(str, shape))} (batch "
+                    f"{b}, {s} prompt tokens, cache {max_len})")
+            log(f"serve {what} vs one card, fed one card's tokens: worst "
+                "logit row over its RMS by step " + ", ".join(
+                    f"{x:.3g}" for x in c["row_rel_by_step"])
+                + ("; one card bf16 vs float32 " + ", ".join(
+                    f"{x:.3g}" for x in floors) if dt == "bfloat16" else "")
+                + "; near ties (top two within the step's bar of the RMS) "
+                f"at steps {c['near_tie_steps']}, first "
+                f"{c['first_near_tie']}; tokens differ without a near tie "
+                f"at steps {c['flips_without_tie']}")
+            if c["flips_without_tie"]:
+                faults.append(f"{what}: greedy tokens differ without a near "
+                              f"tie at steps {c['flips_without_tie']}")
+            if c["steps_over_bar"]:
+                faults.append(f"{what}: a logit row past the bar at steps "
+                              f"{c['steps_over_bar']}")
+            out.append(dict(arch=arch, mesh=list(shape), batch=b, dtype=dt,
+                            floor_by_step=floors if dt == "bfloat16"
+                            else None, **c))
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return out
+
+
+def serve_mesh_phase(seed: int, kernels: list, card: str, dryrun) -> dict:
+    """Phase 15: ``serve(..., mesh=...)`` of phase 8's three models at
+    their full configs on phase 8's shape, one process a visible card
+    (NCCL; one card is a 1 x 1 mesh, still through DTensor), the weights
+    by ``param_pspecs``, the prompts over the data axes, each step
+    through the sharded prefill and decode steps whose regions run the
+    kernels on local shards.  Counters are zeroed just before each serve
+    and read just after: flash_attention, rglru_scan and selective_scan
+    must each launch on the mesh path.  On 1 x 1 the prefill logits and
+    greedy tokens must equal phase 8's bit for bit; on more cards the
+    comparison is logged (``tests/test_torch_cuda.py``'s four-card test
+    holds it).  Then the dry-run child's records (:func:`finish_dryrun`)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    res, outs, shape = run_serve_mesh(os.path.join(ROOT, "build",
+                                                   "serve_mesh"), seed)
+    mesh = "x".join(map(str, shape))
+    plain = {k["name"]: k for k in kernels}["flash_attention"]["serve"]
+    totals = {}
+    for arch in SERVE_ARCHS:
+        r, o, want = res[arch], outs[arch], SERVED[arch]
+        n = SERVE["gen_tokens"]
+        same_tok = bool(np.array_equal(o["tokens"], want["tokens"]))
+        same_lg = bool(torch_equal(o["prefill_logits"],
+                                   want["prefill_logits"]))
+        p8 = plain[arch]
+        log(f"{card} | serve {arch} on a {mesh} mesh (full config, bf16, "
+            f"{SERVE['batch']} x {SERVE['prompt_len']} prompt tokens, {n} "
+            f"greedy tokens): prefill {r['prefill_s']:.3f} s (phase 8 "
+            f"{p8['prefill_s']:.3f} s), decode "
+            f"{r['decode_s'] / (n - 1) * 1e3:.2f} ms/step (phase 8 "
+            f"{p8['decode_s'] / (n - 1) * 1e3:.2f}), peak GiB "
+            + ", ".join(f"{g:.2f}" for g in r["peak_gib"])
+            + f" (phase 8 {p8['peak_gib']:.2f}); prefill logits bit-equal "
+            f"to phase 8: {same_lg}, tokens: {same_tok}; launches "
+            + ", ".join(f"{k}={v}" for k, v in sorted(r["launches"].items())))
+        if shape == (1, 1) and not (same_tok and same_lg):
+            raise AssertionError(f"serve {arch} on 1 x 1 differs from "
+                                 "phase 8's unsharded serve")
+        kinds = set(get_config(arch).layer_types())
+        for name, uses in SERVE_KERNELS.items():
+            c = r["launches"].get(name, 0)
+            if kinds & uses and c <= 0:
+                raise AssertionError(f"serve {arch} on the mesh never "
+                                     f"launched {name}")
+            totals[name] = totals.get(name, 0) + c
+    by_name = {k["name"]: k for k in kernels}
+    for name in LM_KERNELS:
+        add_path(by_name[name], f"serve on a {mesh} mesh", totals[name])
+        by_name[name]["mesh_launches"] = totals[name]
+    dr = finish_dryrun(dryrun, card)
+    out = dict(mesh=list(shape), serve=res, dryrun=dr,
+               phase_s=time.perf_counter() - t_phase)
+    by_name["flash_attention"]["serve_mesh"] = out
+    log(f"{card} | phase 15: {out['phase_s']:.1f} s")
+    return out
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4072,6 +4568,17 @@ def main(argv=None) -> int:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
     t_start = time.perf_counter()
+    dryrun = start_dryrun()    # a CPU child beside the card's phases
+    try:
+        return run_all(args, smi, t_start, dryrun)
+    finally:
+        stop_dryrun(dryrun)
+
+
+def run_all(args, smi: str, t_start: float, dryrun) -> int:
+    """Phases 3-15, then the result lines."""
+    import torch
+
     kernels, model = run_phases(args.seed, args.model, torch.device("cuda"))
     kernels += serving_phase(args.seed, torch.device("cuda"))
     torch.cuda.empty_cache()
@@ -4089,6 +4596,8 @@ def main(argv=None) -> int:
     family_phase(args.seed, torch.device("cuda"), kernels, smi)
     torch.cuda.empty_cache()
     mesh_phase(args.seed, kernels, smi)
+    torch.cuda.empty_cache()
+    serve_mesh_phase(args.seed, kernels, smi, dryrun)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -673,7 +673,9 @@ __global__ void __launch_bounds__(kDecThreads)
 }
 
 // out[b, h] = sum_s e^{m_s - M} o_s / sum_s e^{m_s - M} l_s; a split with
-// no key (m = -inf, l = 0) adds nothing, a row with none outputs 0.  One
+// no key (m = -inf, l = 0) adds nothing, a row with none outputs 0.  When
+// lse is not null, lse[b, h] = M + log(sum_s e^{m_s - M} l_s), the row's
+// log-sum-exp of its scaled logits (-inf for a row with no key).  One
 // block per (batch, q-head) of kCombineParts x D threads: the splits'
 // weights are staged in shared memory (kMaxSplits at most), each part
 // sums one contiguous range of splits in ascending order, and the parts'
@@ -683,7 +685,8 @@ constexpr int kCombineParts = 4;
 
 __global__ void flash_combine_kernel(const float* __restrict__ part_o,
                                      const float* __restrict__ part_ml,
-                                     void* out, int hq, int d, int n_splits,
+                                     void* out, float* __restrict__ lse,
+                                     int hq, int d, int n_splits,
                                      long long o_sb, long long o_sh) {
   extern __shared__ float smem_c[];
   float* sw = smem_c;                  // n_splits: m, then e^{m - M}
@@ -731,6 +734,8 @@ __global__ void flash_combine_kernel(const float* __restrict__ part_o,
     }
     bf16* o = static_cast<bf16*>(out) + (bh / hq) * o_sb + (bh % hq) * o_sh;
     o[col] = __float2bfloat16(sum > 0.f ? acc / sum : 0.f);
+    if (lse != nullptr && col == 0)
+      lse[bh] = sum > 0.f ? mx + logf(sum) : -INFINITY;
   }
 }
 
@@ -921,10 +926,11 @@ extern "C" int flash_attention_decode(const void* q, const void* k,
 }
 
 // o[b, h, 0, :] (bfloat16) from the decode partials; o_sb, o_sh in
-// elements
+// elements; lse (B * Hq float32, or null) the rows' log-sum-exp
 extern "C" int flash_attention_combine(const float* part_o,
                                        const float* part_ml, void* o,
-                                       int batch, int hq, int d, int n_splits,
+                                       float* lse, int batch, int hq, int d,
+                                       int n_splits,
                                        long long o_sb, long long o_sh,
                                        cudaStream_t stream) {
   if (batch <= 0 || hq <= 0 || d <= 0 || d % 8 != 0 ||
@@ -935,6 +941,6 @@ extern "C" int flash_attention_combine(const float* part_o,
   const int bytes =
       (2 * n_splits + kCombineParts * d) * static_cast<int>(sizeof(float));
   flash_combine_kernel<<<blocks, threads, bytes, stream>>>(
-      part_o, part_ml, o, hq, d, n_splits, o_sb, o_sh);
+      part_o, part_ml, o, lse, hq, d, n_splits, o_sb, o_sh);
   return static_cast<int>(cudaGetLastError());
 }

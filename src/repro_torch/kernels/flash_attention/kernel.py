@@ -42,7 +42,7 @@ def _entry(name):
             + [i32] * 2 + [f32] * 2 + [ptr],
             "flash_attention_decode": [ptr] * 5 + [i32] * 5 + [ptr]
             + [i32] * 3 + [f32] * 2 + [ptr],
-            "flash_attention_combine": [ptr] * 3 + [i32] * 4
+            "flash_attention_combine": [ptr] * 4 + [i32] * 4
             + [ctypes.c_longlong] * 2 + [ptr],
         }[name]
         fn.restype = ctypes.c_int
@@ -96,7 +96,7 @@ def _check(err, name):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int | None = None,
-                         softcap: float = 0.0) -> torch.Tensor:
+                         softcap: float = 0.0, return_lse: bool = False):
     """Launch the attention kernel in the form :func:`attention_form` picks.
 
     q ``(B, Hq, Sq, D)``, k/v ``(B, Hkv, Skv, D)``, one dtype (float32 or
@@ -130,18 +130,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_cuda: the head axis must be "
                          "contiguous")
     form = attention_form(sq, q.dtype)
+    if return_lse and form != "decode":
+        raise ValueError("flash_attention_cuda: the log-sum-exp output is "
+                         f"the bf16 decode form's (Sq = 1); got the {form} "
+                         "form")
     scale = float(d ** -0.5)
     if form != "cuda_core" and d not in MMA_HEAD_DIMS:
         widen = lambda t: F.pad(t, (0, 16 - d))  # noqa: E731
-        return _launch(form, widen(q), widen(k), widen(v), causal, window,
-                       softcap, scale)[..., :d]
+        res = _launch(form, widen(q), widen(k), widen(v), causal, window,
+                      softcap, scale, return_lse)
+        return (res[0][..., :d], res[1]) if return_lse else res[..., :d]
     if form != "cuda_core" and not _aligned(q, k, v):
         raise ValueError("flash_attention_cuda: q/k/v rows must start on "
                          "16-byte boundaries (decode and bf16 forms)")
-    return _launch(form, q, k, v, causal, window, softcap, scale)
+    return _launch(form, q, k, v, causal, window, softcap, scale, return_lse)
 
 
-def _launch(form, q, k, v, causal, window, softcap, scale):
+def _launch(form, q, k, v, causal, window, softcap, scale, return_lse=False):
     dev = q.device
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -169,12 +174,15 @@ def _launch(form, q, k, v, causal, window, softcap, scale):
             ctypes.addressof(strides), k_begin, splits, length,
             float(softcap), scale, stream), "flash_attention_decode")
         LAUNCHES["flash_attention"] += 1
+        lse = torch.empty((b, hq, 1), dtype=torch.float32,
+                          device=dev) if return_lse else None
         _check(_entry("flash_attention_combine")(
             part_o.data_ptr(), part_ml.data_ptr(),
-            out.data_ptr(), b, hq, d, splits, out.stride(0), out.stride(1),
-            stream), "flash_attention_combine")
+            out.data_ptr(), None if lse is None else lse.data_ptr(), b, hq,
+            d, splits, out.stride(0), out.stride(1), stream),
+            "flash_attention_combine")
         LAUNCHES["flash_attention_combine"] += 1
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     _check(_entry("flash_attention_fwd")(

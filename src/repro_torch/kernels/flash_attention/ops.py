@@ -17,14 +17,19 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
-              softcap: float = 0.0) -> torch.Tensor:
+              softcap: float = 0.0, return_lse: bool = False):
     """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
     dtype.  Strided views are taken as they are (the last axis must be
     contiguous on the card); ``window`` None or <= 0 disables the
-    sliding window."""
+    sliding window.  ``return_lse`` also returns each row's float32
+    log-sum-exp (B, Hq, Sq) (``-inf`` for a row with no key); on the
+    card only the bf16 decode form gives it."""
     window = window if window is not None and window > 0 else None
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap).to(q.dtype)
+        out = attention_ref(q, k, v, causal=causal, window=window,
+                            softcap=softcap, return_lse=return_lse)
+        if return_lse:
+            return out[0].to(q.dtype), out[1]
+        return out.to(q.dtype)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                softcap=softcap)
+                                softcap=softcap, return_lse=return_lse)

@@ -5,7 +5,10 @@ GQA by repeating k/v heads, scores and softmax in float32, end-aligned
 causal mask, optional sliding window and Gemma-2 softcap.  A row whose
 every key is masked outputs 0 (its softmax normalizer is 0), the
 contract the kernel keeps; ``mha_ref`` itself returns the mean of v
-there (ROADMAP Queue 3).
+there (ROADMAP Queue 3).  With ``return_lse`` it also gives each row's
+log-sum-exp of its (scaled, softcapped) logits, ``-inf`` for a row with
+no key: what a sequence-sharded decode merges its ranks' partial
+softmaxes by.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import torch
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
-                  softcap: float = 0.0, scale: float | None = None):
+                  softcap: float = 0.0, scale: float | None = None,
+                  return_lse: bool = False):
     """Materialized attention.
 
     Args:
@@ -24,7 +28,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
         softcap: if > 0, logits = softcap * tanh(logits / softcap).
         scale: defaults to D ** -0.5.
 
-    Returns (B, Hq, Sq, D) float32.
+    Returns (B, Hq, Sq, D) float32, and with ``return_lse`` the rows'
+    log-sum-exp (B, Hq, Sq) float32.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -48,4 +53,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     p = torch.exp(logits - m)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vr)
-    return out / torch.where(l == 0, torch.ones_like(l), l)
+    out = out / torch.where(l == 0, torch.ones_like(l), l)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l))[..., 0]

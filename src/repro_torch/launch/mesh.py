@@ -10,21 +10,39 @@ it); the fleet mesh is a tuple of devices in one process.
 from __future__ import annotations
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's production mesh: (16, 16) ``("data", "model")``
+    (256 ranks), or (2, 16, 16) ``("pod", "data", "model")`` (512), over
+    the initialised default process group, whose world size must be the
+    mesh's (raises otherwise; never a smaller mesh).  On H100s that is
+    32 (or 64) nodes of 8 cards, one process a card; the dry-run
+    (:mod:`repro_torch.launch.dryrun`) builds it over a fake process
+    group in one CPU process."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, names, device_type, "make_production_mesh")
+
+
 def make_test_mesh(n_data: int = 2, n_model: int = 4, *,
                    multi_pod: bool = False, device_type: str = "cuda"):
     """A ``("data", "model")`` mesh, or ``("pod", "data", "model")`` with
     2 pods, over the initialised default process group, whose world size
     must be the mesh's size (raises otherwise; never a smaller mesh)."""
+    shape = (2, n_data, n_model) if multi_pod else (n_data, n_model)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, names, device_type, "make_test_mesh")
+
+
+def _mesh(shape, names, device_type, what):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    shape = (2, n_data, n_model) if multi_pod else (n_data, n_model)
-    names = ("pod", "data", "model") if multi_pod else ("data", "model")
     size = 1
     for n in shape:
         size *= n
     if not dist.is_initialized():
-        raise RuntimeError("make_test_mesh: initialise the process group "
+        raise RuntimeError(f"{what}: initialise the process group "
                            "(one process per device) first")
     if dist.get_world_size() != size:
         raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
@@ -33,7 +51,7 @@ def make_test_mesh(n_data: int = 2, n_model: int = 4, *,
     if device_type == "cuda":
         import torch
         if not torch.cuda.is_available():
-            raise RuntimeError("make_test_mesh: no CUDA device is visible "
+            raise RuntimeError(f"{what}: no CUDA device is visible "
                                "(pass device_type='cpu' for gloo)")
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 

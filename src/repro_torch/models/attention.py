@@ -3,21 +3,34 @@ construction) and cached decode.
 
 Mirrors ``repro/models/attention.py``, its sharding constraints
 included: under a mesh (:func:`repro_torch.distributed.constrain.use_mesh`)
-with DTensor inputs, q and the per-chunk GQA expansion of k/v are
-sharded over 'model' on the flat q-head axis when the (padded) head
-count divides it, k/v leave the projection replicated over 'model'
-(the training form then takes each rank's kv heads), and every
-activation is batch-sharded over the data axes; on plain tensors the
-constraints return their input.  :func:`attention_block`, the training
-form, is the reference's chunked online softmax in plain PyTorch
-(:func:`chunked_attention`), so autograd differentiates it on any
-device; the attention kernel has no backward.  Prefill and decode go
-through :func:`repro_torch.kernels.flash_attention.ops.attention`, decode
-with Sq = 1 on the live slice of the cache.
+with DTensor inputs, q is sharded over 'model' on the flat q-head axis
+when the (padded) head count divides it, else computed replicated over
+'model' (the reference's fallback); k/v are sharded over 'model' on
+their heads when those divide it, else replicated over 'model', and
+each rank takes (or repeats) the kv heads of its own q heads.  The
+projections are laid out so before the reshape to heads, so a reshape
+never cuts inside a head.  Every activation is batch-sharded over the
+data axes; on plain tensors the constraints return their input.
+:func:`attention_block`, the training form, is the reference's chunked
+online softmax in plain PyTorch (:func:`chunked_attention`), so autograd
+differentiates it on any device; the attention kernel has no backward.
+Prefill and decode go through
+:func:`repro_torch.kernels.flash_attention.ops.attention`, decode with
+Sq = 1 on the live slice of the cache; under a mesh on each rank's
+local shards (:func:`repro_torch.distributed.constrain.local_map`).
 
 The KV cache is stored ``(B, Hkv, Smax, Dh)`` (the reference's is
 ``(B, Smax, Hkv, Dh)``) so that slice is a strided view, and decode
-writes each new key and value into it in place.
+writes each new key and value into it in place.  Under a mesh the cache
+is laid out as ``cache_pspecs`` says: batch over the data axes, kv heads
+over 'model' (head_dim when the heads do not divide it), or, for a
+batch the data axes do not divide (``batch_rows``), the sequence over
+the data axes.  A head_dim-sharded cache gathers its live slice's
+head_dim over 'model' each decode step (a dot product needs the whole
+head_dim); a sequence-sharded one attends on each rank's slice and
+merges the ranks' partial softmaxes by two small all-reduces (the
+row log-sum-exp's max, then the weighted outputs and weights), never
+gathering the cache.
 """
 
 from __future__ import annotations
@@ -25,10 +38,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.constrain import (constrain, is_dtensor, layout,
-                                               local_map, model_axis_size)
+from repro_torch.distributed.constrain import (active_mesh, axes_size,
+                                               axis_rank, batch_replicated,
+                                               constrain, data_axes,
+                                               is_dtensor, layout, local_map,
+                                               model_axis_size)
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.models.layers import init_normal, rope
+from repro_torch.models.layers import init_normal, rope, row_parallel
 
 NEG_INF = -1e30
 
@@ -67,23 +83,64 @@ def _head_axis(cfg):
     return None
 
 
+def _kv_axis(cfg):
+    """'model' if the kv heads shard over it (they divide it and so do
+    the q heads), else None (k/v replicated over 'model')."""
+    m = model_axis_size()
+    if _head_axis(cfg) and cfg.n_kv_heads % m == 0:
+        return "model"
+    return None
+
+
 def _project_qkv(x, p, cfg, positions):
-    """(B, S, D) -> q (B, S, Hq, Dh), k and v (B, S, Hkv, Dh), roped."""
+    """(B, S, D) -> q (B, S, Hq, Dh), k and v (B, S, Hkv, Dh), roped.
+
+    Under a mesh each projection is laid out before the reshape to
+    heads: over 'model' on its flat head axis only when its heads divide
+    'model' (each rank then holds whole heads), else replicated over it."""
     b, s, _ = x.shape
     dh = cfg.head_dim_
-    ha = _head_axis(cfg)
+    ha, kva = _head_axis(cfg), _kv_axis(cfg)
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = constrain(q.reshape(b, s, _nq(cfg), dh), "dp", None, ha, None)
-    # k/v stay GQA-compressed and replicated over 'model' (small)
-    k = constrain(k.reshape(b, s, cfg.n_kv_heads, dh), "dp", None, None, None)
-    v = constrain(v.reshape(b, s, cfg.n_kv_heads, dh), "dp", None, None, None)
+
+    def heads(t, n, axis):
+        t = constrain(t, "dp", None, axis)
+        return constrain(t.reshape(b, s, n, dh), "dp", None, axis, None)
+    q = heads(q, _nq(cfg), ha)
+    k = heads(k, cfg.n_kv_heads, kva)
+    v = heads(v, cfg.n_kv_heads, kva)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _kv_for_q(k, v, hq: int, group: int):
+    """The kv heads of this rank's ``hq`` q heads, from k/v (B, Hkv, S,
+    Dh) whole over 'model': a slice when the rank's q heads take whole
+    kv heads (or share one), else one kv head per q head."""
+    first = axis_rank(("model",)) * hq
+    lo, hi = first // group, (first + hq - 1) // group + 1
+    if hq % group == 0 or group % hq == 0:
+        return k[:, lo:hi], v[:, lo:hi]
+    idx = torch.div(first + torch.arange(hq, device=k.device), group,
+                    rounding_mode="floor")
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _cache_axes(cfg):
+    """(head axis, head_dim axis) of the decode cache on the active mesh,
+    ``cache_pspecs``' rule: kv heads over 'model' when they divide it,
+    else head_dim when that divides it."""
+    m = model_axis_size()
+    if not m:
+        return None, None
+    if cfg.n_kv_heads % m == 0:
+        return "model", None
+    return None, ("model" if cfg.head_dim_ % m == 0 else None)
 
 
 def _heads_first(t):
@@ -195,16 +252,22 @@ def attention_block(x, p, cfg, positions, *, window: int):
     core = local_map(lambda q, k, v: chunked_attention(
         q, k, v, causal=True, window=window, softcap=cfg.attn_softcap,
         head_axis=ha), qo, (qo, layout(*kv_axes), layout(*kv_axes)))
-    return core(q, k, v).reshape(b, s, -1) @ p["wo"]
+    # laid out as the heads were, so the output projection's gradient
+    # comes back in whole heads before the reshape's backward
+    return constrain(core(q, k, v).reshape(b, s, -1), "dp", None, ha) \
+        @ p["wo"]
 
 
 def attention_prefill(x, p, cfg, positions, *, window: int, cache_len: int):
     """Causal attention over the prompt; returns the output and the KV
-    cache ``(B, Hkv, cache_len, Dh)`` holding the prompt's keys/values."""
+    cache ``(B, Hkv, cache_len, Dh)`` holding the prompt's keys/values
+    (under a mesh laid out as ``cache_pspecs`` says)."""
     b, s, _ = x.shape
     if cache_len < s:
         raise ValueError(f"cache_len {cache_len} must cover the prompt "
                          f"({s} tokens)")
+    if active_mesh() is not None and is_dtensor(x):
+        return _prefill_mesh(x, p, cfg, positions, window, cache_len)
     out, k, v = _attend(x, p, cfg, positions, window)
     shape = (b, cfg.n_kv_heads, cache_len, cfg.head_dim_)
     k_cache = k.new_zeros(shape)
@@ -212,6 +275,45 @@ def attention_prefill(x, p, cfg, positions, *, window: int, cache_len: int):
     k_cache[:, :, :s] = _heads_first(k)
     v_cache[:, :, :s] = _heads_first(v)
     return out, (k_cache, v_cache)
+
+
+def _prefill_mesh(x, p, cfg, positions, window, cache_len):
+    """:func:`attention_prefill` on each rank's (batch shard, q-head
+    shard), the cache built on each rank's shard of its layout."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    ha, kva = _head_axis(cfg), _kv_axis(cfg)
+    group = _nq(cfg) // cfg.n_kv_heads
+    select = ha is not None and kva is None
+
+    def attend(q, k, v):
+        q, k, v = _heads_first(q), _heads_first(k), _heads_first(v)
+        if select:
+            k, v = _kv_for_q(k, v, q.shape[1], group)
+        return _heads_first(attention(q, k, v, causal=True, window=window,
+                                      softcap=cfg.attn_softcap))
+    qo, kvo = layout("dp", None, ha, None), layout("dp", None, kva, None)
+    out = local_map(attend, qo, (qo, kvo, kvo))(q, k, v)
+
+    hk, dhk = _cache_axes(cfg)
+    rows, seq = ("dp", None) if not batch_replicated() else (None,
+                                                             data_axes())
+    n_seq = axes_size(seq or ())
+    if cache_len % n_seq:
+        raise ValueError(f"a sequence-sharded cache of {cache_len} "
+                         f"positions over {n_seq} data ranks")
+    span = cache_len // n_seq
+
+    def cache_of(t):                      # t (B, S, Hkv, Dh), local
+        off = axis_rank(seq or ()) * span
+        c = t.new_zeros((t.shape[0], t.shape[2], span, t.shape[3]))
+        hi = min(off + span, s)
+        if hi > off:
+            c[:, :, :hi - off] = _heads_first(t[:, off:hi])
+        return c
+    make = local_map(cache_of, layout(rows, hk, seq, dhk),
+                     (layout(rows, None, hk, dhk),))
+    return row_parallel(out.reshape(b, s, -1), p["wo"]), (make(k), make(v))
 
 
 def attention_decode(x, p, cfg, cache, cur_len: int, *, window: int):
@@ -228,6 +330,10 @@ def attention_decode(x, p, cfg, cache, cur_len: int, *, window: int):
                            device=x.device)
     q, k_new, v_new = _project_qkv(x, p, cfg, positions)
     k_cache, v_cache = cache
+    if active_mesh() is not None and is_dtensor(k_cache):
+        out = _decode_mesh(q, k_new, v_new, k_cache, v_cache, cfg, cur_len,
+                           window)
+        return row_parallel(out.to(x.dtype), p["wo"]), (k_cache, v_cache)
     k_cache[:, :, cur_len] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, :, cur_len] = v_new[:, 0].to(v_cache.dtype)
     start = max(0, cur_len - window + 1) if window > 0 else 0
@@ -239,3 +345,87 @@ def attention_decode(x, p, cfg, cache, cur_len: int, *, window: int):
                     window=window, softcap=cfg.attn_softcap)
     out = out.reshape(b, 1, -1).to(x.dtype) @ p["wo"]
     return out, (k_cache, v_cache)
+
+
+def _decode_mesh(q, k_new, v_new, k_cache, v_cache, cfg, cur_len, window):
+    """:func:`attention_decode`'s write and attention on each rank's
+    shards of the cache, in the layout the cache itself has.  Returns
+    the attention output (B, 1, Hq * Dh) in q's dtype."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = k_cache.device_mesh
+    names = mesh.mesh_dim_names
+    cl = list(k_cache.placements)
+
+    def on(d):
+        return tuple(n for n, pl in zip(names, cl) if pl.is_shard(d))
+    rows, hk, seq, dhk = (on(d) or None for d in range(4))
+    seq = seq or ()
+    kin = layout(rows, None, hk, dhk)
+
+    def write(kc, vc, kn, vn):       # the new key/value on its shard
+        off = axis_rank(seq) * kc.shape[2]
+        if off <= cur_len < off + kc.shape[2]:
+            kc[:, :, cur_len - off] = kn[:, 0].to(kc.dtype)
+            vc[:, :, cur_len - off] = vn[:, 0].to(vc.dtype)
+        return kc, vc
+    local_map(write, (cl, cl), (cl, cl, kin, kin))(k_cache, v_cache,
+                                                   k_new, v_new)
+
+    ha = _head_axis(cfg)
+    group = _nq(cfg) // cfg.n_kv_heads
+    select = ha is not None and hk is None
+    start = max(0, cur_len - window + 1) if window > 0 else 0
+    model = (mesh, names.index("model")) if dhk else None
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+    softcap = cfg.attn_softcap
+
+    def live(q, kc, vc):
+        """This rank's live keys (whole head_dim, its q heads' kv
+        heads), or None when its sequence slice holds none."""
+        off = axis_rank(seq) * kc.shape[2]
+        lo, hi = max(start, off), min(cur_len + 1, off + kc.shape[2])
+        if hi <= lo:
+            return None
+        k, v = kc[:, :, lo - off:hi - off], vc[:, :, lo - off:hi - off]
+        if model is not None:        # head_dim-sharded: gather the slice
+            k = gather(k.contiguous(), 3, model)
+            v = gather(v.contiguous(), 3, model)
+        if select:
+            k, v = _kv_for_q(k, v, q.shape[1], group)
+        if k.dtype != q.dtype:
+            k, v = k.to(q.dtype), v.to(q.dtype)
+        return k, v
+
+    def attend(q, kc, vc):           # q (B, 1, Hq, Dh), local
+        q = _heads_first(q)
+        k, v = live(q, kc, vc)
+        out = attention(q, k, v, causal=True, window=window,
+                        softcap=softcap)
+        return out.reshape(q.shape[0], 1, -1)
+
+    def attend_part(q, kc, vc):      # a slice of the sequence, merged
+        q = _heads_first(q)
+        kv = live(q, kc, vc)
+        if kv is None:
+            out = q.new_zeros(q.shape, dtype=torch.float32)
+            lse = q.new_full(q.shape[:3], float("-inf"),
+                             dtype=torch.float32)
+        else:
+            out, lse = attention(q, *kv, causal=True, window=window,
+                                 softcap=softcap, return_lse=True)
+            out = out.float()
+        top = lse
+        for n in seq:
+            top = funcol.all_reduce(top, "max", (mesh, names.index(n)))
+        w = torch.exp(lse - top)[..., None]             # (B, Hq, 1, 1)
+        num = torch.cat([out * w, w], dim=-1)
+        for n in seq:
+            num = funcol.all_reduce(num, "sum", (mesh, names.index(n)))
+        out = (num[..., :-1] / num[..., -1:]).to(q.dtype)
+        return out.reshape(q.shape[0], 1, -1)
+
+    qo = layout(rows, None, ha, None)
+    return local_map(attend_part if seq else attend, layout(rows, None, ha),
+                     (qo, cl, cl))(q, k_cache, v_cache)

@@ -11,6 +11,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.constrain import (constrain, is_dtensor, layout,
+                                               local_map, model_axis_size)
+
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
@@ -98,7 +101,38 @@ def mlp(x, p, cfg):
         h = a(x @ p["gate"]) * (x @ p["up"])
     else:
         h = a(x @ p["up"])
-    return h @ p["down"]
+    return row_parallel(h, p["down"])
+
+
+def _mm_f32(x, w):
+    """x @ w with float32 products and sums, float32 out: on the card a
+    half-precision GEMM's own float32 output (``torch.mm(...,
+    out_dtype=)``); the CPU has no such GEMM, so there, and for float32
+    operands, the operands are upcast."""
+    if x.is_cuda and x.dtype != torch.float32:
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(*x.shape[:-1],
+                                                         w.shape[-1])
+    return x.float() @ w.float()
+
+
+def row_parallel(x, w):
+    """``x @ w`` for a weight whose rows shard over 'model' (the second
+    product of a tensor-parallel pair).  When serving (no autograd) under
+    a mesh whose 'model' axis is split, each rank forms its partial
+    product in float32 and the partial sums are reduced in float32, then
+    rounded once to x's dtype, as one card's product rounds: bf16
+    partial sums each rounded and then summed moved full-width logits by
+    up to ~20% of their RMS from one card's.  Else ``x @ w``: training
+    keeps DTensor's own product and the backward DTensor derives for it,
+    the form the sharded train step is held to on the card."""
+    if model_axis_size() <= 1 or not is_dtensor(x) or \
+            torch.is_grad_enabled():
+        return x @ w
+    lead = ("dp",) + (None,) * (x.dim() - 2)
+    part = local_map(_mm_f32, layout(*lead, None, partial=("model",)),
+                     (layout(*lead, "model"), layout("model", None)))(x, w)
+    return constrain(part, *lead, None).to(x.dtype)
 
 
 def causal_conv1d(x, w, state=None):
@@ -122,3 +156,16 @@ def causal_conv1d(x, w, state=None):
         y = y + xx[:, i:i + s, :].float() * wf[:, i]
     new_state = xx[:, xx.shape[1] - (k - 1):, :]
     return y.to(x.dtype), new_state
+
+
+def conv1d_on_channels(x, w, state, ch):
+    """:func:`causal_conv1d` on each rank's rows and channels under a
+    mesh (``ch`` the channels' axis, or None), its state float32."""
+    rows = layout("dp", None, ch)
+    ins = (rows, layout(ch, None)) + ((rows,) if state is not None else ())
+
+    def fn(x, w, state=None):
+        y, st = causal_conv1d(x, w, state)
+        return y, st.float()
+    return local_map(fn, (rows, rows), ins)(x, w, *(
+        (state,) if state is not None else ()))

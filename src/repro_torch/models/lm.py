@@ -34,8 +34,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.constrain import (layout, local_map,
-                                               model_axis_size)
+from repro_torch.distributed.constrain import (batch_rows, constrain, layout,
+                                               local_map, model_axis_size)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
@@ -171,11 +171,27 @@ def _apply_layer(x, p, cfg: ModelConfig, kind: str, positions):
             attn.attention_block(y, p["attn"], cfg, positions,
                                  window=_window(cfg, kind)), None))
         return x, aux
-    if kind == MAMBA:
-        return x + mam.mamba_block(apply_norm(x, p["norm1"], cfg),
-                                   p["mamba"], cfg), None
-    x = x + rgl.recurrent_block(apply_norm(x, p["norm1"], cfg), p["rec"], cfg)
-    return x + mlp(apply_norm(x, p["norm2"], cfg), p["mlp"], cfg), None
+    block = mam.mamba_block if kind == MAMBA else rgl.recurrent_block
+    return _ssm_layer(x, p, cfg, kind, lambda y, q: (block(y, q, cfg),
+                                                     None))[0], None
+
+
+def _sub(h):
+    """A sublayer's output as the residual stream holds it under a mesh:
+    rows over the data axes, whole over 'model' (a row-parallel product's
+    partial sums reduced here, before a norm or residual takes them)."""
+    return constrain(h, "dp", None, None)
+
+
+def _ssm_layer(x, p, cfg, kind, run):
+    """A Mamba layer, or a recurrent layer and its MLP: ``run(y, params)``
+    -> (h, state).  Returns (x, state)."""
+    name = "mamba" if kind == MAMBA else "rec"
+    h, st = run(apply_norm(x, p["norm1"], cfg), p[name])
+    x = x + _sub(h)
+    if kind == RECURRENT:
+        x = x + _sub(mlp(apply_norm(x, p["norm2"], cfg), p["mlp"], cfg))
+    return x, st
 
 
 def run_stack(x, params, cfg: ModelConfig, positions, remat: bool = True):
@@ -288,10 +304,25 @@ def loss_fn(params, batch, cfg: ModelConfig, seq_chunk: int = 512,
 # serving: cache / prefill / decode
 # --------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
-               dtype=torch.bfloat16) -> list:
+               dtype=torch.bfloat16, mesh=None,
+               shard_seq: bool = False) -> list:
     """Zeroed decode state, one dict per layer: attention ``k``/``v``
     (B, Hkv, max_len, Dh) in ``dtype``; float32 recurrent and SSM
-    states."""
+    states.  With ``mesh`` (a ``DeviceMesh``) every leaf is a DTensor
+    placed by ``cache_pspecs(..., shard_seq)`` (validated), each rank
+    allocating only its shard; ``device`` is then unused."""
+    if mesh is not None:
+        from torch.distributed import tensor as dt
+
+        from repro_torch.distributed import sharding as shd
+
+        meta = init_cache(cfg, batch, max_len, "meta", dtype)
+        specs = shd.validate_pspecs(
+            shd.cache_pspecs(cfg, meta, mesh, shard_seq=shard_seq), meta,
+            mesh)
+        return shd.map_specs(lambda spec, t: dt.zeros(
+            t.shape, dtype=t.dtype, device_mesh=mesh,
+            placements=shd.placements(mesh, spec)), specs, meta)
     cache = []
     for kind in cfg.layer_types():
         if kind in ATTENTION_KINDS:
@@ -309,6 +340,7 @@ def _attention_layer(x, p, cfg, kind, run):
     """Norm, attention (``run`` -> (h, cache)), post-norm, residual, then
     the MLP or MoE sublayer likewise.  Returns (x, cache, aux)."""
     h, cache = run(apply_norm(x, p["norm1"], cfg))
+    h = _sub(h)
     if cfg.use_post_norm:
         h = apply_norm(h, p["post_norm1"], cfg)
     x = x + h
@@ -318,6 +350,7 @@ def _attention_layer(x, p, cfg, kind, run):
         h, aux = moe_mod.moe_mlp(y, p["moe"], cfg)
     else:
         h = mlp(y, p["mlp"], cfg)
+    h = _sub(h)
     if cfg.use_post_norm:
         h = apply_norm(h, p["post_norm2"], cfg)
     return x + h, cache, aux
@@ -335,21 +368,22 @@ def _prefill_layer(x, p, cfg, kind, positions, max_len):
                 cache_len=max_len)
             return h, {"k": k, "v": v}
         return _attention_layer(x, p, cfg, kind, run)[:2]
-    if kind == MAMBA:
-        h, st = mam.mamba_prefill(apply_norm(x, p["norm1"], cfg), p["mamba"],
-                                  cfg)
-        return x + h, st
-    h, st = rgl.recurrent_prefill(apply_norm(x, p["norm1"], cfg), p["rec"],
-                                   cfg)
-    x = x + h
-    return x + mlp(apply_norm(x, p["norm2"], cfg), p["mlp"], cfg), st
+    pre = mam.mamba_prefill if kind == MAMBA else rgl.recurrent_prefill
+    return _ssm_layer(x, p, cfg, kind, lambda y, q: pre(y, q, cfg))
 
 
 def prefill(params, tokens, cfg: ModelConfig, max_len: int,
             img_embeds=None):
     """Process the prompt (B, S[, K]) after the image prefix, if any;
     returns (last-token logits (B, 1, [K,] V), cache), attention caches
-    sized ``max_len`` (which covers I + S)."""
+    sized ``max_len`` (which covers I + S).  Under a mesh a batch that
+    the data axes do not divide is replicated over them and its
+    attention caches shard their sequence over them instead."""
+    with batch_rows(tokens.shape[0]):
+        return _prefill(params, tokens, cfg, max_len, img_embeds)
+
+
+def _prefill(params, tokens, cfg, max_len, img_embeds):
     x = embed_tokens(params, tokens, cfg, img_embeds)
     positions = _positions(x)
     cache = []
@@ -357,7 +391,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int,
         x, c = _prefill_layer(x, p, cfg, kind, positions, max_len)
         cache.append(c)
     x = apply_norm(x, params["final_norm"], cfg)
-    return logits_for(params, x[:, -1:], cfg), cache
+    return _whole_vocab(logits_for(params, x[:, -1:], cfg)), cache
 
 
 def _decode_layer(x, p, cfg, kind, cache, cur_len):
@@ -368,25 +402,33 @@ def _decode_layer(x, p, cfg, kind, cache, cur_len):
                 window=_window(cfg, kind))
             return h, {"k": k, "v": v}
         return _attention_layer(x, p, cfg, kind, run)[:2]
-    if kind == MAMBA:
-        h, st = mam.mamba_decode(apply_norm(x, p["norm1"], cfg), p["mamba"],
-                                 cfg, cache)
-        return x + h, st
-    h, st = rgl.recurrent_decode(apply_norm(x, p["norm1"], cfg), p["rec"],
-                                 cfg, cache)
-    x = x + h
-    return x + mlp(apply_norm(x, p["norm2"], cfg), p["mlp"], cfg), st
+    dec = mam.mamba_decode if kind == MAMBA else rgl.recurrent_decode
+    return _ssm_layer(x, p, cfg, kind, lambda y, q: dec(y, q, cfg, cache))
 
 
 def decode_step(params, tokens, cache: list, cur_len: int,
                 cfg: ModelConfig):
     """One new token per sequence: tokens (B, 1[, K]) at position
     ``cur_len`` (a host int).  Returns (logits (B, 1, [K,] V), cache);
-    attention caches are updated in place, recurrent states replaced."""
+    attention caches are updated in place, recurrent states replaced.
+    Under a mesh each layer runs on the cache's layout (a batch-1 cache
+    sharded on its sequence by :func:`init_cache`'s ``shard_seq`` or by
+    :func:`prefill`)."""
+    with batch_rows(tokens.shape[0]):
+        return _decode_step(params, tokens, cache, cur_len, cfg)
+
+
+def _decode_step(params, tokens, cache, cur_len, cfg):
     x = embed_tokens(params, tokens, cfg)
     new_cache = []
     for kind, p, c in zip(cfg.layer_types(), params["layers"], cache):
         x, nc = _decode_layer(x, p, cfg, kind, c, cur_len)
         new_cache.append(nc)
     x = apply_norm(x, params["final_norm"], cfg)
-    return logits_for(params, x, cfg), new_cache
+    return _whole_vocab(logits_for(params, x, cfg)), new_cache
+
+
+def _whole_vocab(logits):
+    """Serving's logits under a mesh: rows over the data axes, the whole
+    vocabulary on every rank (gathered over 'model'), for the argmax."""
+    return constrain(logits, "dp", *(None,) * (logits.dim() - 1))

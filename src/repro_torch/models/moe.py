@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.constrain import (constrain, layout,
+from repro_torch.distributed.constrain import (constrain, dp_dividing, layout,
                                                local_map, model_axis_size)
 from repro_torch.models.layers import act_fn, init_mlp, init_normal, mlp
 
@@ -131,7 +131,10 @@ def moe_mlp(x, p, cfg, capacity_factor: float = CAPACITY_FACTOR):
     dispatch and combine on each rank's groups (batch over the data
     axes), the experts on its groups and, when they divide 'model', its
     experts (expert parallelism, the reference's layout), the experts'
-    outputs gathered over 'model' for the combine."""
+    outputs gathered over 'model' for the combine.  Groups that do not
+    divide the data ranks (16 groups on the 32 of two pods) shard over
+    the data axes they divide and repeat over the others
+    (:func:`repro_torch.distributed.constrain.dp_dividing`)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     ep = max(cfg.n_experts_pad, e)
@@ -139,30 +142,34 @@ def moe_mlp(x, p, cfg, capacity_factor: float = CAPACITY_FACTOR):
     g = n_groups(cfg, t)
     tl = t // g
     cap = int(capacity_factor * k * tl / e) + 1
-    xt = constrain(x.reshape(g, tl, d), "dp", None, None)
+    ga = dp_dividing(g)
+    xt = constrain(constrain(x, ga, None, None).reshape(g, tl, d), ga, None,
+                   None)
     m = model_axis_size()
     ea = "model" if m and ep % m == 0 else None
-    grp, grp2 = layout("dp", None, None), layout("dp", None)
+    grp, grp2 = layout(ga, None, None), layout(ga, None)
     buf, slot, keep, flat_g, probs, oh = local_map(
         lambda xt, router: _dispatch(xt, router, k, e, ep, cap),
-        (layout("dp", None, None, None), grp2, grp2, grp2, grp, grp),
-        (grp, layout()), (grp, layout(partial=("dp",))))(xt, p["router"])
+        (layout(ga, None, None, None), grp2, grp2, grp2, grp, grp),
+        (grp, layout()), (grp, layout(partial=(ga,))))(xt, p["router"])
     w_axes = (ea, None, None)
-    ex = layout("dp", ea, None, None)
+    ex = layout(ga, ea, None, None)
     out_buf = local_map(
         lambda *a: _experts(*a, cfg.act), ex, (ex,) + (layout(*w_axes),) * 3,
-        (ex,) + (layout(*w_axes, partial=("dp",)),) * 3)(
+        (ex,) + (layout(*w_axes, partial=(ga,)),) * 3)(
             buf, p["gate"], p["up"], p["down"])
     out = local_map(
         lambda *a: _combine(*a, k, s), grp,
-        (layout("dp", None, None, None), grp2, grp2, grp2))(
+        (layout(ga, None, None, None), grp2, grp2, grp2))(
             out_buf, slot, keep, flat_g)
+    out = constrain(out, "dp", None, None)     # rows laid out as x's
 
-    if cfg.n_shared_experts:
-        xf = x.reshape(t, d)
-        gate_sh = torch.sigmoid((xf @ p["shared_gate"]).float())
-        out = out + (mlp(xf, p["shared"], cfg)
-                     * gate_sh[:, None].to(x.dtype)).reshape(b, s, d)
+    if cfg.n_shared_experts:   # on (B, S, D): the same products as on
+        # the flattened tokens, with no reshape for DTensor to lay out; the
+        # gate's rows (and so its gradient's) laid out as x's
+        gate_sh = torch.sigmoid(constrain(x @ p["shared_gate"], "dp",
+                                          None).float())
+        out = out + mlp(x, p["shared"], cfg) * gate_sh[..., None].to(x.dtype)
 
     # Switch-style load-balance loss; dropped assignments count too
     me = probs.mean(dim=(0, 1))

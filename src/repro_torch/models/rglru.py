@@ -12,7 +12,11 @@ The training form (:func:`recurrent_block`) runs the recurrence as the
 reference does, an associative scan (:func:`rglru_assoc_scan`, plain
 PyTorch, so autograd differentiates it).  Prefill runs it through the
 RG-LRU kernel (:mod:`repro_torch.kernels.rglru_scan`); decode is the
-single-step update in plain PyTorch, as in the reference.
+single-step update in plain PyTorch, as in the reference.  Under a mesh
+the conv, the scan and the step run on each rank's rows and channels
+(:func:`repro_torch.distributed.constrain.local_map`), the training
+form's placements, and the ``conv`` / ``h`` states are laid out as
+``cache_pspecs`` says.
 """
 
 from __future__ import annotations
@@ -20,10 +24,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.constrain import (layout, local_map,
+from repro_torch.distributed.constrain import (constrain, layout, local_map,
                                                model_axis_size)
 from repro_torch.kernels.rglru_scan.ops import rglru
-from repro_torch.models.layers import causal_conv1d, gelu, init_normal
+from repro_torch.models.layers import (causal_conv1d, conv1d_on_channels,
+                                       gelu, init_normal, row_parallel)
 
 RGLRU_C = 8.0
 
@@ -48,21 +53,37 @@ def init_recurrent(cfg, gen, device, dtype):
 
 
 def _gates(y, p):
+    # under a mesh the channel-sharded input is gathered over 'model' for
+    # the column-parallel gates (the layout every rank's torch can place)
+    y = constrain(y, "dp", None, None)
     r = torch.sigmoid((y @ p["wa"]).float() + p["ba"])
     i = torch.sigmoid((y @ p["wx"]).float() + p["bx"])
     a = torch.exp(-RGLRU_C * F.softplus(p["lam"]) * r)
     return a, i
 
 
+def _channels(cfg):
+    """The channels' mesh axis: 'model' when it divides the width."""
+    m = model_axis_size()
+    return "model" if m and cfg.lru_width_ % m == 0 else None
+
+
 def recurrent_prefill(x, p, cfg):
     """Over the prompt.  x (B, S, D) -> (out (B, S, D), state for decode:
     ``conv`` (B, K-1, W) and ``h`` (B, W), float32)."""
+    ch = _channels(cfg)
     gate = gelu((x @ p["in_gate"]).float()).to(x.dtype)
-    z, conv = causal_conv1d(x @ p["in_lin"], p["conv_w"])
+    z, conv = conv1d_on_channels(x @ p["in_lin"], p["conv_w"], None, ch)
     a, i = _gates(z, p)
-    h = rglru(i * z.float(), a)                            # (B, S, W) f32
-    out = (h.to(x.dtype) * gate) @ p["out_proj"]
-    return out, {"conv": conv.float(), "h": h[:, -1]}
+    rows = layout("dp", None, ch)
+
+    def scan(x, a):
+        h = rglru(x, a)
+        return h, h[:, -1]
+    h, last = local_map(scan, (rows, layout("dp", ch)), (rows, rows))(
+        i * z.float(), a)                                  # (B, S, W) f32
+    out = row_parallel(h.to(x.dtype) * gate, p["out_proj"])
+    return out, {"conv": conv, "h": last}
 
 
 def rglru_assoc_scan(x, a):
@@ -88,12 +109,11 @@ def recurrent_block(x, p, cfg):
     gate = gelu((x @ p["in_gate"]).float()).to(x.dtype)
     z, _ = causal_conv1d(x @ p["in_lin"], p["conv_w"])
     a, i = _gates(z, p)
-    m = model_axis_size()
-    rows = ("dp", None, "model" if m and cfg.lru_width_ % m == 0 else None)
+    rows = ("dp", None, _channels(cfg))
     h = local_map(rglru_assoc_scan, layout(*rows),
                   (layout(*rows), layout(*rows)))(
         i * z.float(), a)                                  # (B, S, W) f32
-    return (h.to(x.dtype) * gate) @ p["out_proj"]
+    return row_parallel(h.to(x.dtype) * gate, p["out_proj"])
 
 
 def init_recurrent_state(cfg, batch, device, dtype=torch.float32):
@@ -103,13 +123,22 @@ def init_recurrent_state(cfg, batch, device, dtype=torch.float32):
             "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
 
 
-def recurrent_decode(x, p, cfg, state):
-    """One token.  x (B, 1, D) -> (out, new state)."""
-    gate = gelu((x @ p["in_gate"]).float()).to(x.dtype)
-    y, conv_state = causal_conv1d(x @ p["in_lin"], p["conv_w"], state["conv"])
-    a, i = _gates(y, p)                                    # (B, 1, W)
+def _step(i, y, a, h):
+    """One step of the recurrence: gates and input (B, 1, W), state h
+    (B, W) -> h."""
     u = i[:, 0] * y[:, 0].float()
     a0 = a[:, 0]
-    h = a0 * state["h"] + torch.sqrt(torch.clamp(1.0 - a0 * a0, min=0.0)) * u
-    out = (h[:, None].to(x.dtype) * gate) @ p["out_proj"]
+    return a0 * h + torch.sqrt(torch.clamp(1.0 - a0 * a0, min=0.0)) * u
+
+
+def recurrent_decode(x, p, cfg, state):
+    """One token.  x (B, 1, D) -> (out, new state)."""
+    ch = _channels(cfg)
+    gate = gelu((x @ p["in_gate"]).float()).to(x.dtype)
+    y, conv_state = conv1d_on_channels(x @ p["in_lin"], p["conv_w"],
+                                       state["conv"], ch)
+    a, i = _gates(y, p)                                    # (B, 1, W)
+    rows, hs = layout("dp", None, ch), layout("dp", ch)
+    h = local_map(_step, hs, (rows, rows, rows, hs))(i, y, a, state["h"])
+    out = row_parallel(h[:, None].to(x.dtype) * gate, p["out_proj"])
     return out, {"conv": conv_state, "h": h}

@@ -14,9 +14,13 @@ The same step runs over a mesh when the parameters are DTensors
 (:func:`repro_torch.distributed.constrain.use_mesh`, so the models'
 constraints act) and with DTensor's implicit replication, so the plain
 host-side tensors the models and AdamW make (positions, masks, the
-schedule's scalars) count as replicated.  Each microbatch is laid out
-over the data axes again after it is cut, so it holds the reference's
-rows.  The metrics come back as plain tensors on every rank.
+schedule's scalars) count as replicated.  A microbatch's rows span data
+ranks (on 16 of them, microbatch i of 8 is held by two), so the batch is
+gathered once a step and each microbatch laid out over the data axes
+again after it is cut: it holds the reference's rows.  A microbatch the
+data axes do not divide is replicated over them
+(:func:`repro_torch.distributed.constrain.batch_rows`).  The metrics
+come back as plain tensors on every rank.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ import contextlib
 
 import torch
 
-from repro_torch.distributed.constrain import (constrain, full, is_dtensor,
-                                               use_mesh)
+from repro_torch.distributed.constrain import (batch_rows, constrain, full,
+                                               is_dtensor, use_mesh)
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
@@ -50,12 +54,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         x = x.reshape((grad_accum, -1) + tuple(x.shape[1:]))[i]
         return constrain(x, "dp", *(None,) * (x.dim() - 1))
 
+    def whole(x):     # a microbatch's rows span data ranks: gather first
+        return constrain(x, *(None,) * x.dim())
+
     def train_step(params, opt_state, batch):
         nonlocal decay
         leaves = tree_leaves(params)
         if decay is None:
             decay = decay_mask(cfg, params)
-        with _on_mesh(leaves[0]), torch.enable_grad():
+        rows = next(iter(batch.values())).shape[0] // grad_accum
+        with _on_mesh(leaves[0]), batch_rows(rows), torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
             try:
@@ -64,6 +72,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                 else:
                     tot = torch.zeros((), dtype=torch.float32,
                                       device=leaves[0].device)
+                    batch = {k: whole(v) for k, v in batch.items()}
                     for i in range(grad_accum):
                         l_i, g_i = value_and_grad(params, leaves, {
                             k: micro(v, i) for k, v in batch.items()})
@@ -99,14 +108,37 @@ def _on_mesh(leaf):
     return stack
 
 
+def _serving(leaf):
+    """The mesh context of a serving step: :func:`_on_mesh`, and for
+    DTensor parameters no autograd under ``no_grad`` rather than inference
+    mode.  Under inference mode DTensor's sharding propagation takes other
+    strategies (a batch replicated over 'data' gets its sequence sharded
+    over it), and it breaks ties between strategies of equal cost in set
+    order, which differs between processes: ranks then issued different
+    collectives and hung (seen on four ``gloo`` ranks at 4 x 1)."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(_on_mesh(leaf))
+    if is_dtensor(leaf):
+        stack.enter_context(torch.inference_mode(False))
+        stack.enter_context(torch.no_grad())
+    return stack
+
+
 def make_prefill_step(cfg: ModelConfig, max_len: int):
+    """Returns ``prefill_step(params, tokens, img_embeds=None) ->
+    (logits, cache)``; with DTensor parameters it runs under their mesh,
+    as the train step does."""
     def prefill_step(params, tokens, img_embeds=None):
-        return lm.prefill(params, tokens, cfg, max_len=max_len,
-                          img_embeds=img_embeds)
+        with _serving(tree_leaves(params)[0]):
+            return lm.prefill(params, tokens, cfg, max_len=max_len,
+                              img_embeds=img_embeds)
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig):
+    """Returns ``decode_step(params, tokens, cache, cur_len) -> (logits,
+    cache)``; with DTensor parameters it runs under their mesh."""
     def decode_step(params, tokens, cache, cur_len):
-        return lm.decode_step(params, tokens, cache, cur_len, cfg)
+        with _serving(tree_leaves(params)[0]):
+            return lm.decode_step(params, tokens, cache, cur_len, cfg)
     return decode_step

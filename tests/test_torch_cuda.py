@@ -1564,3 +1564,32 @@ def test_lm_mesh_on_every_card_equals_one_card(cuda, tmp_path):
         chip_smoke.check_mesh(res, torch.cuda.get_device_name(0), what)
         assert res["dp"]["compressed"]["wire_bytes"] * 4 == \
             res["dp"]["plain"]["wire_bytes"]
+
+
+def test_sharded_serving_on_four_cards_matches_one_card(cuda, tmp_path):
+    """On four cards, one process a card over NCCL: gemma2-2b,
+    recurrentgemma-9b and falcon-mamba-7b at full width on 2 x 2 and
+    1 x 4 (phase 8's 4 x 3,072 prompt tokens), and gemma2-2b at batch 1
+    on 4 x 1 over a 32,768-position cache sharded on its sequence, each
+    in bf16 and, from the same weights upcast, in float32, against the
+    same serve on one card (``chip_smoke.run_serve_compare``): the
+    prefill and 8 decode steps, every run fed one card's bf16 greedy
+    tokens, so that every step is compared.  Every logit row within
+    1e-3 of its RMS in float32; in bf16 within 5% of it -- or within
+    twice one card's own bf16-vs-float32 distance at that step, where
+    bf16 rounding alone moves one card further.  The greedy tokens
+    identical at every step but where one card's top two lie within that
+    step's bar of the RMS (a near tie); the first such step is
+    printed."""
+    import pathlib
+    import sys
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+
+    for r in chip_smoke.run_serve_compare(str(tmp_path / "serve"), 0):
+        print(r)
+        assert not r["steps_over_bar"] and not r["flips_without_tie"]

@@ -20,6 +20,11 @@ The job (JSON) names a ``file://`` rendezvous, the result path, and:
   buffer each rank holds;
 - ``remesh``: a parameter tree saved under the 2 x 2 mesh, restored and
   re-placed on 4 x 1 and 1 x 4, every leaf compared with the source;
+- ``serve``: sharded prefill and greedy decode steps of saved parameters
+  and prompts on the mesh each case names, every step's logits gathered
+  (``.npz``), and for a batch-1 case the collectives of one decode step
+  (:class:`repro_torch.utils.roofline.CollectiveRecorder`) beside the
+  bytes of each rank's attention cache shard;
 - the mesh of the wrong size, which must raise, and a multi-pod one.
 
 Torch only: the test compares these with the reference.
@@ -92,6 +97,9 @@ def run_case(case, mesh, job, rank):
 
     cfg = dataclasses.replace(get_smoke_config(case["arch"]),
                               param_dtype=case["dtype"])
+    if case.get("mesh"):
+        from repro_torch.launch.mesh import make_test_mesh
+        mesh = make_test_mesh(*case["mesh"], device_type="cpu")
     params, state, _ = _placed(cfg, mesh, case["params"])
     grads = grads_of(cfg, params, _batch(mesh, np.load(case["batches"])[0]))
     if rank == 0:
@@ -217,6 +225,48 @@ def run_remesh(job, mesh, rank):
     return out
 
 
+def run_serve(case, rank):
+    """Prefill ``case``'s prompts and decode ``steps`` greedy tokens on
+    its mesh; rank 0 saves every step's logits (prefill first)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.constrain import full, is_dtensor
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import place_on_mesh
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    from repro_torch.utils.roofline import CollectiveRecorder
+
+    cfg = dataclasses.replace(get_smoke_config(case["arch"]),
+                              param_dtype="float32")
+    mesh = make_test_mesh(*case["mesh"], device_type="cpu")
+    params = torch.load(case["params"], weights_only=True)
+    prompts = torch.as_tensor(np.load(case["prompts"]))
+    params, prompts, _ = place_on_mesh(params, prompts, None, mesh)
+    prefill = make_prefill_step(cfg, case["max_len"])
+    decode = make_decode_step(cfg)
+    logits, cache = prefill(params, prompts)
+    out, info = [full(logits)], {}
+    pos = prompts.shape[1]
+    for i in range(case["steps"]):
+        tok = logits.argmax(dim=-1)
+        if i == 0 and case.get("record"):
+            rec = CollectiveRecorder()
+            with rec:
+                logits, cache = decode(params, tok, cache, pos + i)
+            kv = [c["k"] for c in cache if "k" in c]
+            info = dict(records=[r[:2] for r in rec.stats.records],
+                        cache_shard_bytes=min(
+                            (t.to_local().numel() * t.element_size()
+                             for t in kv), default=None),
+                        cache_placements=str(kv[0].placements)
+                        if kv and is_dtensor(kv[0]) else None)
+        else:
+            logits, cache = decode(params, tok, cache, pos + i)
+        out.append(full(logits))
+    if rank == 0:
+        np.savez(case["out"], *[t.numpy() for t in out])
+    return info
+
+
 def rank_main(rank, job):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=job["init"], rank=rank,
@@ -240,7 +290,9 @@ def rank_main(rank, job):
         if job.get("remesh"):
             out["remesh"] = run_remesh(job, mesh, rank)
         out["cases"] = {c["name"]: run_case(c, mesh, job, rank)
-                        for c in job["cases"]}
+                        for c in job.get("cases", ())}
+        out["serve"] = {c["name"]: run_serve(c, rank)
+                        for c in job.get("serve", ())}
     except Exception:
         out["error"] = traceback.format_exc()
         raise

@@ -8,14 +8,16 @@ Phases, in order; any failure exits non-zero:
 1. provenance: torch / CUDA versions, the card, ``nvidia-smi``;
 2. build: ``nvcc`` compiles every ``src/repro_torch/csrc/*.cu`` (in
    parallel) for sm_90a;
-3. the training path (paper SIV-A): ``collect`` of the 96 cells on a
-   96 x 96 PFSSim (9,216 interfaces) for 30 s (60 intervals),
+3. the training path (paper SIV-A) through the collect + train CLI
+   (``repro_torch.core.dataset``'s ``main``, saved under
+   ``build/dial_cli/``): ``collect`` of the 96 cells on a 96 x 96
+   PFSSim (9,216 interfaces) for 15 s (30 intervals; cut from 30 s),
    ``train_models`` at the default GBDT shape (160 trees, depth 5,
-   exact float64) on 70% of the rows, and the held-out AUC through
-   ``DIALModel.predict_proba``; launch counters are zeroed just before
-   each and read just after.  Then the same training on the CPU (plain
-   versions) must give the same forests, and a 3 s collect on the card
-   the CPU's labels and rows;
+   exact float64) on its rows; launch counters are zeroed just before
+   each and read just after.  A 3 s collect of the next seed on the card
+   must give the CPU's labels and rows, and is the held-out set of the
+   AUC through ``DIALModel.predict_proba``; the same training on the
+   CPU (plain versions) must give the same forests;
 4. kernel checks at the main paths' shapes, each kernel against its
    plain PyTorch version: ``segment_sum`` bit-equal to ``np.bincount``
    on the four mappings of the fleet topology, one column and the main
@@ -38,8 +40,8 @@ Phases, in order; any failure exits non-zero:
    segment's count of dependent float64 adds on registers in one thread,
    timed, and beside it the kernel on that segment alone;
 5. the paper-scale fit: ``fit_forest_batch`` on that pair in both
-   precisions, timed and counted; the exact fit once more under
-   ``torch.profiler`` for the kernel's device time;
+   precisions, timed and counted; 20 of the exact fit's 160 trees once
+   more under ``torch.profiler`` for the kernel's device time;
 6. the tuned fleet: ``run_fleet`` on a 256-client x 32-OST PFSSim
    (8,192 interfaces) for 10 intervals of 100 ticks with the model
    trained in phase 3 (or ``--model``), then from fresh sims built the
@@ -76,18 +78,19 @@ Phases, in order; any failure exits non-zero:
    float32 on the card and on the CPU (plain versions), the same
    weights: identical greedy tokens, logits within 1e-4;
 9. the Scenario Lab, with the model phase 3 trained: ``evaluate`` of
-   the 12-scenario catalog (25 policy arms each, 5 s at 0.5 s, 4
+   the 12-scenario catalog (25 policy arms each, 2.5 s at 0.5 s, 4
    buckets) on the host path, the fused loop eager, on CUDA graphs and
    on graphs again (rows identical all four ways, bit for bit; 4
    buckets and 4 dispatches; the wall time, captures and their seconds
    and the loop cache's hits and misses of each), then 1,024
    ``variants`` of noisy_neighbor (8,192 interfaces) through
-   ``run_batch(fused=True)`` for 20 intervals eager, on graphs and on
+   ``run_batch(fused=True)`` for 10 intervals eager, on graphs and on
    graphs again (graph bit-equal to eager; ms per replayed interval on
    CUDA events, one replayed interval's busy share under
    ``torch.profiler``, launches per interval), ``segment_sum`` on the
    four maps of that batch and of each catalog bucket and the forest on
-   each one's rows against their plain versions, and ``smoke_campaign()`` through ``run_campaign`` on the card and on
+   each one's rows against their plain versions, and ``smoke_campaign()``
+   (its 15 s cut to 7.5 s) through ``run_campaign`` on the card and on
    the CPU (the collected rows and labels identical, forests equal);
    counters zeroed just before each run and read just after, every
    number beside the card's name and power limit;
@@ -98,11 +101,12 @@ Phases, in order; any failure exits non-zero:
    every record, provenance and timeline, bit-equal to the traced
    eager run's), then replayed runs of the two loops alternated in this
    process for the traced-vs-untraced span (CUDA events), and eager runs
-   alternated for the host-bound eager interval's wall time; the fuzz
-   sweep at ``FuzzConfig``'s defaults (the 24-point Θ grid, 6 s, four
-   topologies, 0-3 events) cut from 512 to 32 scenarios, diagnosis on,
-   twice on graphs (the two ``report.json`` byte-identical; wall time,
-   captures, buckets); ``SMOKE`` cut from 64 to 16 scenarios on the
+   of 3 intervals alternated for the host-bound eager interval's wall
+   time; the fuzz sweep at ``FuzzConfig``'s defaults (the 24-point Θ
+   grid, 6 s, four topologies, 0-3 events) cut from 512 to 8
+   scenarios, diagnosis on, twice on graphs (the two ``report.json``
+   byte-identical; wall time, captures, buckets); ``SMOKE`` cut from 64
+   to 4 scenarios on the
    card on graphs and eager and on the CPU (the three reports
    byte-identical), and its losers through ``diagnose_many`` on graphs
    and eager (identical, equal to the sweep's diagnoses); ``trace`` of the worst
@@ -113,7 +117,7 @@ Phases, in order; any failure exits non-zero:
    run go into rows 1 and 2.  Its outputs are written under
    ``build/obs/``;
 11. the rest of DIAL's side, with the same model: ``run_comparison(
-   "failing_ost", seconds=22.5)`` (frozen vs online refit, 45 intervals
+   "failing_ost", seconds=10)`` (frozen vs online refit, 20 intervals
    x 2 arms, refits of 40 x 5 trees) on the card here and in a child
    process (reports byte-identical) and on the CPU in another child (the frozen
    arm bit-equal, the online arm through its first refit; a later
@@ -185,7 +189,23 @@ Phases, in order; any failure exits non-zero:
    the build and held to two of the host's cores, ``launch/dryrun.py``
    of gemma2-2b's four shapes on both production meshes (256 and 512
    ranks of a fake process group) at its full config, under
-   ``build/dryrun/``.
+   ``build/dryrun/``;
+16. (run before phase 15, its CPU side from before phase 13) the
+   paper's experiments, with phase 3's model, through
+   ``benchmarks/torch_table2_h5bench.py`` and ``torch_fig3_dlio.py``:
+   Table II's six workloads (static arms at (256, 8), (16, 1) and
+   (1024, 32) of Θ's 24, and the DIAL arm from (256, 8)) and Fig. 3's
+   bert 16 x 2 and megatron 32 x 4 (default and DIAL), each 2.5 s (cut
+   from 20 and 25 s), on the card (static arms through one engine-only
+   fused loop per sim shape, DIAL arms through ``run_fleet(backend=
+   "torch-fused")``, every interval a CUDA-graph replay) and in three
+   CPU children with the card's congestion ``pow``
+   (``pow_cr``'s plain version): every arm's delivered bytes bit-equal,
+   the DIAL arms' θ trajectories and the rows (``optimal_cfg``
+   included) identical; launches counted and replayed go into the
+   ``segment_sum``, ``pow_cr`` and paired-forest rows; ``segment_sum``
+   on the 1 x 8 sim's maps and the forest on its 8 x 24 rows against
+   their plain versions; under ``build/paper/``.
 
 It prints one JSON line of kernel results, the ``nvidia-smi`` name and
 power limit, and as its last line
@@ -208,6 +228,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)         # benchmarks/ (phase 16's scripts)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32, outside tensor cores
@@ -216,8 +237,11 @@ SFU_PER_CLOCK_PER_SM = 16      # exp2 results (CUDA guide, compute 9.0)
 DEPTH = 5                      # the default GBDTParams' depth
 CLIENTS, OSTS = 256, 32        # 8,192 OSC interfaces
 SECONDS, INTERVAL = 5.0, 0.5   # 10 tuning intervals of 100 ticks
-COLLECT_SECONDS = 30.0         # 60 collection intervals (paper SIV-A)
+# 30 collection intervals (paper SIV-A's recipe; cut from 30 s to keep the
+# smoke with phase 16 inside 80% of its limit)
+COLLECT_SECONDS = 15.0
 PAPER_ROWS = {"read": 100_000, "write": 98_000}   # paper SIV-A sample counts
+PROFILE_TREES = 20             # the profiled fit's trees (of 160; cut)
 # (n_nodes, right children parked on the drop id) of a depth-5 tree's
 # five histogram launches: the root, then the left children of each level
 LEVELS = ((1, False), (1, True), (2, True), (4, True), (8, True))
@@ -749,16 +773,36 @@ def replayed_run(loop, dev, n_intervals: int) -> dict:
 
 
 def training_path(seed: int, dev):
-    """Phase 3: collect -> train -> held-out AUC on the card, each with
-    its launches counted, then the card held against the CPU."""
+    """Phase 3: the collect + train CLI (``repro_torch.core.dataset``'s
+    ``main``) at phase 3's settings on the card, its collect and its
+    training each with their launches counted, the AUC on rows collected
+    apart; then the card held against the CPU."""
     import torch
+    from unittest import mock
+
+    from repro_torch.core import dataset
     from repro_torch.core.dataset import CollectConfig, collect, train_models
     from repro_torch.pfs.state import READ, WRITE
 
-    cfg = CollectConfig(seconds=COLLECT_SECONDS, reps=1, seed=seed)
-    n_intervals = int(round(cfg.seconds / cfg.interval))
-    data, t_collect, collect_counts = counted(lambda: collect(cfg,
-                                                              device=dev))
+    n_intervals = int(round(COLLECT_SECONDS / 0.5))
+    stages = {}
+
+    def staged(name, fn):
+        def run(*a, **k):
+            out, secs, counts = counted(lambda: fn(*a, **k))
+            stages[name] = (secs, counts)
+            return out
+        return run
+
+    prefix = os.path.join(ROOT, "build", "dial_cli", "dial")
+    with mock.patch.object(dataset, "collect", staged("collect", collect)), \
+            mock.patch.object(dataset, "train_models",
+                              staged("train", train_models)):
+        data, model = dataset.main([
+            "--out", prefix, "--seconds", str(COLLECT_SECONDS), "--reps",
+            "1", "--seed", str(seed)])
+    (t_collect, collect_counts), (t_train, train_counts) = (
+        stages["collect"], stages["train"])
     for name, (X, y) in data.items():
         if len(X) == 0 or len(set(y.tolist())) != 2 \
                 or not np.isfinite(X).all():
@@ -766,28 +810,30 @@ def training_path(seed: int, dev):
                                  f"({len(X)} rows)")
     if collect_counts.get("segment_sum", 0) <= 0:
         raise AssertionError("collect never launched segment_sum")
-    log(f"collect: 96 cells on 9,216 interfaces, {n_intervals} intervals "
-        f"in {t_collect:.3f} s ({t_collect / n_intervals * 1e3:.2f} "
+    log(f"collect (the CLI, --seconds {COLLECT_SECONDS:g} --reps 1; cut "
+        f"from 30 s): 96 cells on 9,216 interfaces, {n_intervals} "
+        f"intervals in {t_collect:.3f} s ({t_collect / n_intervals * 1e3:.2f} "
         f"ms/interval): {len(data['read'][0])} read rows (positive "
         f"{data['read'][1].mean():.3f}), {len(data['write'][0])} write "
         f"rows (positive {data['write'][1].mean():.3f}); launches "
         + ", ".join(f"{k}={v}" for k, v in collect_counts.items()))
-
-    rng = np.random.default_rng(seed)
-    train, test = {}, {}
-    for name, (X, y) in data.items():
-        perm = rng.permutation(len(X))
-        cut = int(0.7 * len(X))
-        train[name] = (X[perm[:cut]], y[perm[:cut]])
-        test[name] = (X[perm[cut:]], y[perm[cut:]])
-    model, t_train, train_counts = counted(lambda: train_models(train,
-                                                                device=dev))
     if train_counts.get("tree_histogram", 0) != 160 * DEPTH:
         raise AssertionError(f"train_models launched tree_histogram "
                              f"{train_counts.get('tree_histogram', 0)} "
                              f"times, not 160 x {DEPTH}")
-    xs = {op: torch.as_tensor(test[name][0], device=dev)
-          for op, name in ((READ, "read"), (WRITE, "write"))}
+
+    # held-out rows: a short collect from another seed, on the card and
+    # on the CPU (their rows and labels must agree)
+    short = CollectConfig(seconds=3.0, reps=1, seed=seed + 1)
+    on_card, on_cpu = collect(short, device=dev), collect(short,
+                                                          device="cpu")
+    for name in ("read", "write"):
+        (Xa, ya), (Xb, yb) = on_card[name], on_cpu[name]
+        if Xa.shape != Xb.shape or not np.array_equal(ya, yb) \
+                or not np.allclose(Xa, Xb, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"collect {name}: card and CPU differ")
+    test = {READ: on_card["read"], WRITE: on_card["write"]}
+    xs = {op: torch.as_tensor(X, device=dev) for op, (X, _) in test.items()}
     probs, _, auc_counts = counted(lambda: {
         op: model.predict_proba(op, x) for op, x in xs.items()})
     if auc_counts.get("forest_margin", 0) <= 0:
@@ -797,21 +843,21 @@ def training_path(seed: int, dev):
         p = probs[op].cpu().numpy()
         if not np.isfinite(p).all():
             raise AssertionError(f"{name} model: probabilities not finite")
-        aucs[name] = auc(p, test[name][1])
+        aucs[name] = auc(p, test[op][1])
         if not aucs[name] > 0.5:
             raise AssertionError(f"{name} model: held-out AUC {aucs[name]} "
                                  "no better than chance")
-    log(f"train_models: {len(train['read'][0])} read + "
-        f"{len(train['write'][0])} write rows, 160 trees depth {DEPTH} "
+    log(f"train_models (the CLI): {len(data['read'][0])} read + "
+        f"{len(data['write'][0])} write rows, 160 trees depth {DEPTH} "
         f"exact, in {t_train:.3f} s; launches "
         + ", ".join(f"{k}={v}" for k, v in train_counts.items())
-        + f"; held-out AUC read {aucs['read']:.4f} "
-        f"({len(test['read'][0])} rows), write {aucs['write']:.4f} "
-        f"({len(test['write'][0])} rows)")
+        + f"; saved to {os.path.relpath(prefix, ROOT)}.{{read,write}}.npz; "
+        f"held-out AUC (a 3 s collect of seed {seed + 1}) read "
+        f"{aucs['read']:.4f} ({len(test[READ][0])} rows), write "
+        f"{aucs['write']:.4f} ({len(test[WRITE][0])} rows)")
 
-    # the card against the CPU's plain versions: the same training, and
-    # a short collect
-    cpu_model = train_models(train, device="cpu")
+    # the card against the CPU's plain versions: the same training
+    cpu_model = train_models(data, device="cpu")
     for op, name in ((READ, "read"), (WRITE, "write")):
         assert_forests_match(model.forest(op), cpu_model.forest(op),
                              f"train_models {name}, card vs CPU")
@@ -820,14 +866,6 @@ def training_path(seed: int, dev):
         if not err <= 1e-5:
             raise AssertionError(f"{name} model: card vs CPU probabilities "
                                  f"differ by {err}")
-    short = CollectConfig(seconds=3.0, reps=1, seed=seed)
-    on_card, on_cpu = collect(short, device=dev), collect(short,
-                                                          device="cpu")
-    for name in ("read", "write"):
-        (Xa, ya), (Xb, yb) = on_card[name], on_cpu[name]
-        if Xa.shape != Xb.shape or not np.array_equal(ya, yb) \
-                or not np.allclose(Xa, Xb, rtol=1e-5, atol=0.0):
-            raise AssertionError(f"collect {name}: card and CPU differ")
     log("reference check: train_models on the card == CPU plain versions "
         "(features equal, thresholds/leaves within 1e-5); 3 s collect on "
         f"the card == CPU ({len(on_cpu['read'][0])} + "
@@ -996,8 +1034,9 @@ def check_tree_histogram(pair: list, rng, dev) -> dict:
 
 def paper_fit(pair: list, dev) -> dict:
     """Phase 5: the read/write pair at the paper's sample counts, both
-    precisions, timed (host binning included) and counted; the exact fit
-    once more under the profiler for the kernel's device time."""
+    precisions, timed (host binning included) and counted; the first
+    :data:`PROFILE_TREES` trees of the exact fit once more under the
+    profiler for the kernel's device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1026,7 +1065,8 @@ def paper_fit(pair: list, dev) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fit_forest_batch(pair, GBDTParams(), precision="exact", device=dev)
+        fit_forest_batch(pair, GBDTParams(n_trees=PROFILE_TREES),
+                         precision="exact", device=dev)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = [a for a in prof.key_averages()
@@ -1038,14 +1078,14 @@ def paper_fit(pair: list, dev) -> dict:
         k_n = sum(a.count for a in hist)
         out["exact"].update(kernel_device_ms=k_ms, kernel_launches=k_n,
                             device_busy_ms=busy, profiled_wall_ms=wall_ms)
-        log(f"paper-scale fit [exact] profiled: tree_histogram {k_n} "
-            f"launches, {k_ms:.2f} ms on the device ({k_ms / k_n:.4f} ms "
-            f"each); device busy {busy:.2f} ms of this profiled fit's "
-            f"{wall_ms:.2f} ms wall time ({busy / wall_ms:.1%}; the "
-            "profiler's host cost is in that wall time); across two runs, "
-            f"this busy time over the unprofiled fit's "
-            f"{out['exact']['seconds'] * 1e3:.2f} ms is "
-            f"{busy / (out['exact']['seconds'] * 1e3):.1%}")
+        log(f"paper-scale fit [exact] profiled ({PROFILE_TREES} of its 160 "
+            f"trees): tree_histogram {k_n} launches, {k_ms:.2f} ms on the "
+            f"device ({k_ms / k_n:.4f} ms each); device busy {busy:.2f} ms "
+            f"of this profiled fit's {wall_ms:.2f} ms wall time "
+            f"({busy / wall_ms:.1%}; the profiler's host cost is in that "
+            f"wall time); that busy time x 160 / {PROFILE_TREES} over the "
+            f"unprofiled fit's {out['exact']['seconds'] * 1e3:.2f} ms is "
+            f"{busy * 160 / PROFILE_TREES / (out['exact']['seconds'] * 1e3):.1%}")
     else:
         log("paper-scale fit: kernel device time not measured (the "
             "profiler recorded no tree_histogram kernel)")
@@ -1791,10 +1831,12 @@ def serving_phase(seed: int, dev) -> list:
 # phase 9: the Scenario Lab
 # ---------------------------------------------------------------------- #
 # the catalog's seconds cut from the CLI's 10 s to 5 s to keep the smoke
-# inside its limit beside phase 15 (PR 22 ran it at 5 s once)
-LAB_SECONDS, LAB_INTERVAL = 5.0, 0.5
+# inside its limit beside phase 15, then to 2.5 s (5 intervals, 2 of them
+# deciding) beside phase 16
+LAB_SECONDS, LAB_INTERVAL = 2.5, 0.5
 WIDE_VARIANTS = 1024                      # x 8 interfaces = 8,192
-WIDE_SECONDS = 10.0                       # 20 tuned intervals
+WIDE_SECONDS = 5.0                        # 10 tuned intervals (cut from 20)
+CAMPAIGN_SECONDS = 7.5                    # the smoke campaign's 15 s, cut
 LAB_ROOT = os.path.join(ROOT, "build", "lab_campaign")
 
 
@@ -1881,7 +1923,7 @@ def lab_catalog(model, dev, card: str) -> dict:
 
 def lab_wide_batch(model, seed: int, dev, card: str) -> tuple:
     """1,024 variants of noisy_neighbor (8,192 interfaces) through
-    ``run_batch(fused=True)`` for 20 intervals, every element tuned:
+    ``run_batch(fused=True)`` for 10 intervals, every element tuned:
     eager, on graphs (capture), and on graphs again (replays only);
     graph bit-equal to eager; one replayed interval profiled."""
     import torch
@@ -1969,7 +2011,8 @@ def lab_wide_batch(model, seed: int, dev, card: str) -> tuple:
 
 
 def lab_campaign(dev, card: str) -> dict:
-    """``smoke_campaign()`` through ``run_campaign`` on the card and on
+    """``smoke_campaign()`` at :data:`CAMPAIGN_SECONDS` through
+    ``run_campaign`` on the card and on
     the CPU: the collected rows and labels identical (the datasets'
     fingerprints: row counts and a hash of X and y), the forests equal."""
     import shutil
@@ -1979,6 +2022,7 @@ def lab_campaign(dev, card: str) -> dict:
     from repro_torch.pfs.state import READ, WRITE
 
     cfg, gbdt = smoke_campaign()
+    cfg = dataclasses.replace(cfg, seconds=CAMPAIGN_SECONDS)
     shutil.rmtree(LAB_ROOT, ignore_errors=True)
     (d, model, info), secs, counts = counted(lambda: run_campaign(
         cfg, out_root=os.path.join(LAB_ROOT, "card"), gbdt_params=gbdt,
@@ -2108,8 +2152,9 @@ def lab_phase(model, seed: int, dev, kernels: list, card: str) -> None:
 TRACE_STRIDE = 20
 AB_ORDER = ("untraced", "traced", "traced", "untraced", "untraced",
             "traced")                     # replayed runs, alternated
-FUZZ_SCENARIOS = 32                       # FuzzConfig's 512, cut
-CUT_SCENARIOS = 16                        # SMOKE's 64, cut: card vs CPU
+FUZZ_SCENARIOS = 8                        # FuzzConfig's 512, cut (was 32)
+CUT_SCENARIOS = 4                         # SMOKE's 64, cut: card vs CPU (was 16)
+EAGER_AB_INTERVALS = 3                    # the eager A/B's runs (cut from 10)
 OBS_ROOT = os.path.join(ROOT, "build", "obs")
 
 
@@ -2190,9 +2235,9 @@ def obs_traced_fleet(model, dev, card: str) -> dict:
     eager_ms = {"traced": [], "untraced": []}
     for which in AB_ORDER[:4]:
         loop = loops[which]
-        _, secs, _ = counted(lambda: loop.run(table, sim.state, wstate, n,
-                                              graph=False))
-        eager_ms[which].append(secs / n * 1e3)
+        _, secs, _ = counted(lambda: loop.run(
+            table, sim.state, wstate, EAGER_AB_INTERVALS, graph=False))
+        eager_ms[which].append(secs / EAGER_AB_INTERVALS * 1e3)
     g = runs["traced graph"]["run"]
     out = dict(
         interfaces=sim.n_osc, intervals=n, stride=TRACE_STRIDE,
@@ -2235,8 +2280,9 @@ def obs_traced_fleet(model, dev, card: str) -> dict:
         + " ms, untraced " + ", ".join(
             f"{s:.2f}" for s in out["spans_ms"]["untraced"])
         + f" ms; medians {med['traced']:.2f} / {med['untraced']:.2f} ms = "
-        f"{100 * out['overhead']:+.1f}%; eager wall per interval (runs "
-        "alternated " + " ".join(AB_ORDER[:4]) + "): traced " + ", ".join(
+        f"{100 * out['overhead']:+.1f}%; eager wall per interval (runs of "
+        f"{EAGER_AB_INTERVALS} intervals alternated "
+        + " ".join(AB_ORDER[:4]) + "): traced " + ", ".join(
             f"{s:.2f}" for s in eager_ms["traced"]) + " ms, untraced "
         + ", ".join(f"{s:.2f}" for s in eager_ms["untraced"]) + " ms")
     return out
@@ -2278,7 +2324,7 @@ def _sweep_line(name: str, r: dict) -> str:
 
 def obs_fuzz(model, dev, card: str) -> dict:
     """The fuzz sweep at ``FuzzConfig``'s defaults (the 24-point Θ grid,
-    6 s, four topologies, 0-3 events) cut to 32 scenarios, diagnosis on,
+    6 s, four topologies, 0-3 events) cut to 8 scenarios, diagnosis on,
     twice on graphs: the two reports byte-identical."""
     import shutil
 
@@ -2301,7 +2347,7 @@ def obs_fuzz(model, dev, card: str) -> dict:
 
 def obs_cut_sweep(model, model_cpu, dev, card: str) -> dict:
     """The CI-sized sweep (``SMOKE``: 6 static θ, 3 s, two topologies)
-    cut to 16 scenarios, diagnosis on, on the card on graphs and eager
+    cut to 4 scenarios, diagnosis on, on the card on graphs and eager
     and on the CPU (plain versions, one torch thread, their fastest at
     these sizes): the three reports byte-identical.  Then its losers
     through ``diagnose_many`` on graphs and eager: identical, and equal
@@ -2549,9 +2595,10 @@ def obs_phase(model, seed: int, dev, kernels: list, card: str) -> str:
 # phase 11: continual refit, the hard-case curriculum, overhead, the mesh
 # ---------------------------------------------------------------------- #
 CONT_SCENARIO = "failing_ost"             # run_comparison's default
-# half run_comparison's 45 s (the OST fails at 3 s): 45 intervals x 2
-# arms, cut to keep the smoke with phase 14 well inside its 1,200 s
-CONT_SECONDS = 22.5
+# run_comparison's 45 s cut (the OST fails at 3 s) to keep the smoke
+# inside its 1,200 s: to 22.5 s beside phase 14, to 10 s (20 intervals x 2
+# arms, refits at 7 and 14) beside phase 16
+CONT_SECONDS = 10.0
 DIAL_ROOT = os.path.join(ROOT, "build", "dial")
 TRAIN_ROOT = os.path.join(ROOT, "build", "train")
 
@@ -3273,10 +3320,8 @@ def continual_check(model, model_cpu, card: str) -> dict:
     values otherwise; no card kernel reproduces it)."""
     import torch
 
-    from repro_torch.kernels.pow_cr.ref import pow_cr_ref
     from repro_torch.lab.continual import run_continual
     from repro_torch.lab.scenarios import get_scenario
-    from repro_torch.pfs import state
 
     def run(dev, m):
         t0 = time.perf_counter()
@@ -3285,15 +3330,10 @@ def continual_check(model, model_cpu, card: str) -> dict:
             device=dev).row()))
         return row, time.perf_counter() - t0
 
-    numpy_pow = state._pow
     got, t_card = run(torch.device("cuda"), model)
     cpu, t_cpu = run("cpu", model_cpu)
-    state._pow = lambda x, e: (pow_cr_ref(x, e) if x.device.type == "cpu"
-                               else numpy_pow(x, e))
-    try:
+    with cpu_pow_cr():
         cpu_cr, t_cpu_cr = run("cpu", model_cpu)
-    finally:
-        state._pow = numpy_pow
     if got != cpu_cr:
         first = {k: _first_diff(got[k], cpu_cr[k]) for k in got
                  if isinstance(got[k], list) and got[k] != cpu_cr[k]}
@@ -4132,11 +4172,13 @@ def finish_dryrun(proc, card: str) -> dict:
     """Wait for :func:`start_dryrun`'s child; every cell's record whole."""
     from repro_torch.configs.shapes import applicable_shapes
 
+    t_wait = time.perf_counter()
     try:
         rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
     finally:
         stop_dryrun(proc)
     wall = time.perf_counter() - proc.t0
+    wait_s = time.perf_counter() - t_wait
     with open(os.path.join(DRYRUN_OUT, "dryrun.log")) as f:
         text = f.read()
     if rc != 0:
@@ -4161,8 +4203,9 @@ def finish_dryrun(proc, card: str) -> dict:
                 f"s, collective {r['collective_s']:.4g} s: {r['dominant']}")
             recs[f"{shape}__{tag}"] = rec
     log(f"{card} | dry-run child: {len(recs)} cells in {wall:.1f} s (wall, "
-        f"beside the card's phases, on cores {proc.cores})")
-    return dict(wall_s=wall, cells=recs)
+        f"beside the card's phases, on cores {proc.cores}; phase 15 waited "
+        f"{wait_s:.1f} s for it)")
+    return dict(wall_s=wall, wait_s=wait_s, cells=recs)
 
 
 def _serve_mesh_rank(rank: int, world: int, job: dict) -> None:
@@ -4528,6 +4571,294 @@ def serve_mesh_phase(seed: int, kernels: list, card: str, dryrun) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 16: the paper's experiments (Table II, Fig. 3)
+# ---------------------------------------------------------------------- #
+# Table II's 20 s and Fig. 3's 25 s cut to 5 intervals (DIAL decides in
+# the last 2), the grid of 24 to three configurations with Lustre's
+# default first, Fig. 3's 8 cases to one of each kernel
+PAPER_SECONDS = 2.5
+PAPER_CONFIGS = [(256, 8), (16, 1), (1024, 32)]
+PAPER_CASES = [("bert", 16, 2), ("megatron", 32, 4)]
+PAPER_ROOT = os.path.join(ROOT, "build", "paper")
+# CPU children beside the card's run, each one torch thread and a third
+# of the workloads: the card's congestion pow (pow_cr's plain version,
+# ~1,000 float64 ops a call) costs the CPU ~0.6 s an interval
+PAPER_PARTS = 3
+
+PAPER_CHILD = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+from repro_torch.core.model import DIALModel
+prefix, out, part = sys.argv[1], sys.argv[2], int(sys.argv[3])
+with chip_smoke.cpu_pow_cr():
+    runs = chip_smoke.paper_runs(DIALModel.load(prefix, device="cpu"), "cpu",
+                                 part)
+with open(out, "w") as f:
+    json.dump(dict(chip_smoke.paper_record(runs), seconds=runs["seconds"]), f)
+"""
+
+
+class cpu_pow_cr:
+    """Within: the CPU engine's congestion ``pow`` is the card's
+    (``pow_cr``'s plain version) instead of numpy's ``power``."""
+
+    def __enter__(self):
+        from repro_torch.kernels.pow_cr.ref import pow_cr_ref
+        from repro_torch.pfs import state
+
+        self.numpy_pow = numpy_pow = state._pow
+        state._pow = lambda x, e: (pow_cr_ref(x, e) if x.device.type == "cpu"
+                                   else numpy_pow(x, e))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.pfs import state
+
+        state._pow = self.numpy_pow
+
+
+def paper_runs(model, dev, part: int | None = None) -> dict:
+    """Table II's six workloads over :data:`PAPER_CONFIGS` plus the DIAL
+    arm, then Fig. 3's :data:`PAPER_CASES`, at :data:`PAPER_SECONDS`,
+    through the two scripts' ``measure``; ``part`` of
+    :data:`PAPER_PARTS` runs every ``PAPER_PARTS``-th of each."""
+    import benchmarks.torch_fig3_dlio as fig3
+    import benchmarks.torch_table2_h5bench as t2
+
+    pick = (lambda xs: xs) if part is None else (  # noqa: E731
+        lambda xs: xs[part::PAPER_PARTS])
+    fig3.SECONDS = PAPER_SECONDS          # read when a run starts
+    t0 = time.perf_counter()
+    table = t2.measure(model, configs=PAPER_CONFIGS, seconds=PAPER_SECONDS,
+                       workloads=pick(t2.WORKLOADS), device=dev)
+    t1 = time.perf_counter()
+    cases = fig3.measure(model, cases=pick(PAPER_CASES), device=dev)
+    return dict(table=table, cases=cases,
+                seconds=dict(table2=t1 - t0,
+                             fig3=time.perf_counter() - t1))
+
+
+def paper_record(runs: dict) -> dict:
+    """What card and CPU must agree on, as JSON: the two scripts'
+    ``detail`` (every arm's unrounded MB/s, the DIAL arms' delivered
+    bytes and θ trajectories; the rows follow from them)."""
+    import benchmarks.torch_fig3_dlio as fig3
+    import benchmarks.torch_table2_h5bench as t2
+
+    return json.loads(json.dumps({"table2": t2.detail(runs["table"]),
+                                  "fig3": fig3.detail(runs["cases"])}))
+
+
+def _first_record_diff(a, b, path="") -> str | None:
+    """Where two JSON records first differ, or ``None``."""
+    if isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys():
+        for k in a:
+            d = _first_record_diff(a[k], b[k], f"{path}.{k}")
+            if d:
+                return d
+        return None
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = _first_record_diff(x, y, f"{path}[{i}]")
+            if d:
+                return d
+        return None
+    return None if a == b else f"{path}: {a!r} vs {b!r}"
+
+
+def paper_kernels(model, rng) -> tuple:
+    """``segment_sum`` on the Table II sim's maps and the paired forest
+    on its 8 interfaces x 24 rows, against their plain versions."""
+    import torch
+
+    from repro_torch.kernels.gbdt_forest.ops import pair_forests
+    from repro_torch.pfs.engine import PFSSim
+    from repro_torch.pfs.workloads import bdcats_read, table_from_sim
+
+    dev = model.device
+    sim = PFSSim(1, 8, device=dev)
+    sim.attach(bdcats_read(0, "full"))
+    table, _ = table_from_sim(sim)
+    seg = check_segment_sum({"paper 1x8 osc_ost x2": (sim.topo.ost_map, 2),
+                             "paper 1x8 osc_client": (sim.topo.client_map, 1),
+                             "paper 1x8 entry_row": (table.row_map, 1),
+                             "paper 1x8 entry_osc x8": (table.osc_map, 8)},
+                            rng)
+    feature, threshold, leaf, base, _, n_features = pair_forests(
+        model.read_forest, model.write_forest)
+    to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    x = to((rng.standard_normal((sim.n_osc * 24, n_features)) * 10.0
+            ** rng.uniform(-1, 3, n_features)).astype(np.float32))
+    op = to(np.repeat(rng.integers(0, 2, sim.n_osc), 24).astype(np.int32))
+    forest = check_forest("paired_forest_margin",
+                          "src/repro/kernels/gbdt_forest/kernel.py:96", x, op,
+                          *map(to, (feature, threshold, leaf, base)),
+                          label=" (paper 1x8 rows)")
+    return seg, forest
+
+
+def paper_children(model) -> list:
+    """Start phase 16's CPU side: :data:`PAPER_PARTS` children, each a
+    part of :func:`paper_runs` on the CPU with the card's congestion
+    ``pow``, from ``model`` saved under :data:`PAPER_ROOT`.  They need
+    nothing but the model, so they start before phase 13 and run beside
+    the card's phases (~1 min each, one core each)."""
+    import shutil
+
+    shutil.rmtree(PAPER_ROOT, ignore_errors=True)
+    os.makedirs(PAPER_ROOT)
+    prefix = os.path.join(PAPER_ROOT, "model")
+    model.save(prefix)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    children = []
+    for i in range(PAPER_PARTS):
+        out = os.path.join(PAPER_ROOT, f"cpu{i}.json")
+        c = subprocess.Popen(
+            [sys.executable, "-c", PAPER_CHILD, prefix, out, str(i)], env=env,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        c.out = out
+        children.append(c)
+    return children
+
+
+def stop_children(children: list) -> None:
+    for c in children:
+        if c.poll() is None:
+            c.kill()
+            c.communicate()
+
+
+def paper_phase(model, seed: int, dev, kernels: list, card: str,
+                children: list) -> dict:
+    """Phase 16, the paper's experiments on the model phase 3 trained:
+    Table II's six workloads (static arms over :data:`PAPER_CONFIGS`, the
+    DIAL arm from Lustre's default) and two Fig. 3 cases, at
+    :data:`PAPER_SECONDS`, on the card (every interval a CUDA-graph
+    replay), held against :func:`paper_children`'s CPU runs: every arm's
+    delivered bytes bit-equal, θ trajectories and rows (``optimal_cfg``
+    included) identical.  Launches go into the ``segment_sum``,
+    ``pow_cr`` and paired-forest rows."""
+    import torch
+
+    import benchmarks.torch_fig3_dlio as fig3
+    import benchmarks.torch_table2_h5bench as t2
+
+    t_phase = time.perf_counter()
+    try:
+        runs, secs, counts = counted(lambda: paper_runs(model, dev))
+        t_wait = time.perf_counter()
+        logs = [c.communicate(timeout=600)[0] for c in children]
+        wait_s = time.perf_counter() - t_wait
+    finally:
+        stop_children(children)
+    cpu, cpu_s = {"table2": [], "fig3": []}, []
+    for c, text in zip(children, logs):
+        if c.returncode != 0:
+            raise AssertionError(f"paper runs on the CPU (child process) "
+                                 f"failed: {text[-2000:]}")
+        with open(c.out) as f:
+            part = json.load(f)
+        cpu_s.append(part.pop("seconds"))
+        for k in cpu:
+            cpu[k] += part[k]
+    rec = paper_record(runs)
+    # the parts in the card's order
+    cpu["table2"].sort(key=lambda r: [m["workload"] for m in rec[
+        "table2"]].index(r["workload"]))
+    cpu["fig3"].sort(key=lambda r: [c["case"] for c in rec["fig3"]].index(
+        r["case"]))
+    diff = _first_record_diff(rec, cpu)
+    if diff:
+        raise AssertionError(f"paper runs: the card differs from the CPU at "
+                             f"{diff}")
+    arms = [a for m in runs["table"] for a in [g for _, g in m["grid"]]
+            + [m["dial"]]] + [c[k] for c in runs["cases"]
+                              for k in ("default", "dial")]
+    dial = [m["dial"] for m in runs["table"]] + [c["dial"]
+                                                 for c in runs["cases"]]
+    on_card = torch.device(dev).type == "cuda"
+    for a in arms:
+        if not (np.isfinite(a.mbs) and a.mbs > 0) \
+                or a.run["graph"] != on_card:
+            raise AssertionError(f"paper runs: an arm ran off the graph or "
+                                 f"delivered {a.mbs} MB/s")
+    if not any(len(r) for a in dial for r in a.fleet.decisions):
+        raise AssertionError("paper runs: no DIAL arm decided")
+    rows = ([t2.row(m) for m in runs["table"]],
+            [fig3.row(c) for c in runs["cases"]])
+    for row in rows[0]:
+        if tuple(row["optimal_cfg"]) not in PAPER_CONFIGS:
+            raise AssertionError(f"{row['workload']}: optimal_cfg "
+                                 f"{row['optimal_cfg']}")
+    replayed = {}
+    for a in arms:
+        for k, v in a.run.get("launches_per_replay", {}).items():
+            replayed[k] = replayed.get(k, 0) + v * a.run["replays"]
+    captured = [a.run for a in arms if a.run.get("captured_now")]
+    capture_s = sum(r["capture_s"] + (r["instantiate_s"] or 0.0)
+                    for r in captured)
+    n_int = int(round(PAPER_SECONDS / 0.5))
+    ms = {name: float(np.mean([a.run.get("device_ms_per_interval", np.nan)
+                               for a in xs]))
+          for name, xs in (("static", [a for a in arms if a.fleet is None]),
+                           ("DIAL", dial))}
+    cpu_total = sum(p["table2"] + p["fig3"] for p in cpu_s)
+    cpu_ms = cpu_total / (len(arms) * n_int) * 1e3
+    by_name = {k["name"]: k for k in kernels}
+    for kname in ("segment_sum", "pow_cr", "paired_forest_margin"):
+        add_path(by_name[kname], "paper Table II + Fig. 3 (counted + "
+                 "replayed)", counts.get(kname, 0) + replayed.get(kname, 0))
+    rng = np.random.default_rng(seed + 16)
+    seg, forest = paper_kernels(model, rng)
+    by_name["segment_sum"]["paper_shapes"] = seg["cases"]
+    by_name["paired_forest_margin"]["paper_shapes"] = [
+        {k: forest[k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                "bound_by", "max_abs_err", "shape")}]
+    for row in rows[0]:
+        log(f"{card} | Table II {row['workload']}: optimal "
+            f"{row['optimal_mbs']} MB/s at {tuple(row['optimal_cfg'])} of "
+            f"{len(PAPER_CONFIGS)}, DIAL {row['dial_mbs']} MB/s "
+            f"({row['dial_frac_of_optimal']} of optimal)")
+    for row in rows[1]:
+        log(f"{card} | Fig. 3 {row['kernel']} t={row['threads']} "
+            f"osts={row['osts']}: default {row['default_mbs']}, DIAL "
+            f"{row['dial_mbs']} MB/s ({row['speedup']}x)")
+    res = dict(
+        seconds=PAPER_SECONDS, configs=PAPER_CONFIGS, cases=PAPER_CASES,
+        arms=len(arms), card_s=secs, card_split_s=runs["seconds"],
+        cpu_s=cpu_s, cpu_wait_s=wait_s, captures=len(captured),
+        capture_s=capture_s, device_ms_per_interval=ms,
+        cpu_ms_per_interval=cpu_ms, counts=counts, replayed=replayed,
+        decided=sum(len(r) for a in dial for r in a.fleet.decisions),
+        changes=sum(int(r.decisions.changed.sum()) for a in dial
+                    for r in a.fleet.decisions))
+    log(f"{card} | paper runs: Table II's 6 workloads x ({len(PAPER_CONFIGS)} "
+        f"of 24 static configurations + DIAL) and Fig. 3's "
+        f"{len(PAPER_CASES)} of 8 cases x 2 arms, {PAPER_SECONDS:g} s each "
+        f"(cut from 20 and 25 s: {n_int} intervals): {len(arms)} arms on the "
+        f"card in {secs:.3f} s (Table II {runs['seconds']['table2']:.3f}, "
+        f"Fig. 3 {runs['seconds']['fig3']:.3f}), {len(captured)} captures in "
+        f"{capture_s:.3f} s, replays {ms['static']:.2f} ms/interval static "
+        f"and {ms['DIAL']:.2f} DIAL (device span); {PAPER_PARTS} CPU "
+        f"children (the card's pow; started before phase 13), "
+        + ", ".join(f"{p['table2'] + p['fig3']:.3f}" for p in cpu_s)
+        + f" s ({cpu_ms:.2f} ms/interval; waited {wait_s:.3f} s): delivered "
+        f"bytes bit-equal, θ trajectories ({res['decided']} decided rows, "
+        f"{res['changes']} θ changes) and rows identical; launches counted "
+        + ", ".join(f"{k}={v}" for k, v in counts.items()) + ", replayed "
+        + ", ".join(f"{k}={v}" for k, v in replayed.items()))
+    res["phase_s"] = time.perf_counter() - t_phase
+    by_name["paired_forest_margin"]["paper"] = {
+        k: v for k, v in res.items() if k not in ("counts", "replayed")}
+    log(f"{card} | phase 16: {res['phase_s']:.1f} s")
+    return res
+
+
 def torch_equal(a, b) -> bool:
     import torch
 
@@ -4576,13 +4907,19 @@ def main(argv=None) -> int:
 
 
 def run_all(args, smi: str, t_start: float, dryrun) -> int:
-    """Phases 3-15, then the result lines."""
+    """Phases 3-16, then the result lines."""
     import torch
 
+    t0 = time.perf_counter()
     kernels, model = run_phases(args.seed, args.model, torch.device("cuda"))
+    log(f"{smi} | phases 3-7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     kernels += serving_phase(args.seed, torch.device("cuda"))
+    log(f"{smi} | phase 8: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     lab_phase(model, args.seed, torch.device("cuda"), kernels, smi)
+    log(f"{smi} | phase 9: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     cut_report = obs_phase(model, args.seed, torch.device("cuda"), kernels,
                            smi)
@@ -4592,12 +4929,21 @@ def run_all(args, smi: str, t_start: float, dryrun) -> int:
     torch.cuda.empty_cache()
     train_phase(model, torch.device("cuda"), kernels, smi)
     log(f"{smi} | the phases before 13: {time.perf_counter() - t_start:.1f} s")
-    torch.cuda.empty_cache()
-    family_phase(args.seed, torch.device("cuda"), kernels, smi)
-    torch.cuda.empty_cache()
-    mesh_phase(args.seed, kernels, smi)
+    children = paper_children(model)      # phase 16's CPU side, from here
+    try:
+        torch.cuda.empty_cache()
+        family_phase(args.seed, torch.device("cuda"), kernels, smi)
+        torch.cuda.empty_cache()
+        mesh_phase(args.seed, kernels, smi)
+        torch.cuda.empty_cache()
+        # before phase 15, which waits for the dry-run child at its end
+        paper_phase(model, args.seed, torch.device("cuda"), kernels, smi,
+                    children)
+    finally:
+        stop_children(children)
     torch.cuda.empty_cache()
     serve_mesh_phase(args.seed, kernels, smi, dryrun)
+    log(f"{smi} | the phases: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

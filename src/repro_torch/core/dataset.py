@@ -28,9 +28,11 @@ takes effect on the next tick, so batching them changes nothing.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import dataclasses
 import itertools
+import os
 
 import numpy as np
 import torch
@@ -186,3 +188,45 @@ def train_models(data: dict, gbdt_params: GBDTParams | None = None,
                      train_meta={"trainer_backend": "torch",
                                  "precision": "exact",
                                  "dataset": dataset_fingerprint(data)})
+
+
+def main(argv=None) -> tuple:
+    """The collect + train CLI (the reference's ``main``)::
+
+        PYTHONPATH=src python -m repro_torch.core.dataset [--out models/dial]
+            [--seconds 60] [--reps 4] [--contention] [--seed 0]
+            [--device cpu]
+
+    Collects and trains on the CUDA card unless ``--device cpu`` is
+    given, prints the reference's two sample lines, and saves
+    ``<out>.{read,write}.npz`` in the reference's layout (either
+    package's ``DIALModel.load`` reads them).  Returns ``(data, model)``.
+    """
+    ap = argparse.ArgumentParser(
+        description="DIAL offline data collection + training")
+    ap.add_argument("--out", default="models/dial")
+    ap.add_argument("--seconds", type=float, default=60.0)
+    ap.add_argument("--reps", type=int, default=4)
+    ap.add_argument("--contention", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card; 'cpu' runs the plain "
+                    "PyTorch versions")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = CollectConfig(seconds=args.seconds, reps=args.reps,
+                        include_contention=args.contention, seed=args.seed)
+    data = collect(cfg, device=dev)
+    for op_name in ("read", "write"):
+        X, y = data[op_name]
+        print(f"{op_name}: {len(X)} samples, positive rate {y.mean():.3f}")
+    model = train_models(data, device=dev)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    model.save(args.out)
+    print(f"saved forests to {args.out}.{{read,write}}.npz")
+    return data, model
+
+
+if __name__ == "__main__":
+    main()

@@ -732,6 +732,45 @@ class FusedLoop:
                                    self.params.tick)
 
 
+# engine-only loops reused across :func:`run_engine` calls: sims that
+# share (physics, wiring, cadence, device) hit the same loop, whose
+# captured interval replays for a table of the same content
+_ENGINE_LOOPS: dict = {}
+
+
+def run_engine(sim, seconds: float, interval: float = 0.5) -> dict:
+    """Advance ``sim``'s attached workloads ``seconds`` under their
+    current knobs, ``interval / tick`` ticks an interval, through an
+    engine-only :class:`FusedLoop` (``tuned=False``): on the card each
+    interval a CUDA-graph replay, on the CPU eager.  The ticks are
+    :meth:`~repro_torch.pfs.engine.PFSSim.run`'s.  The loop is kept per
+    (physics, wiring, cadence, device), so a later sim with the same
+    tables replays its graph.  Returns the run's ``last_run``."""
+    from repro_torch.pfs.workloads import (sync_workloads_from_table,
+                                           table_from_sim)
+
+    steps = max(int(round(interval / sim.params.tick)), 1)
+    n_ticks = int(round(seconds / sim.params.tick))
+    if n_ticks % steps:
+        raise ValueError(f"{seconds} s is not a whole number of "
+                         f"{interval} s intervals")
+    topo = sim.topo
+    key = (sim.params, topo.n_clients, topo.n_osts,
+           topo.osc_client.cpu().numpy().tobytes(),
+           topo.osc_ost.cpu().numpy().tobytes(), steps, str(sim.device))
+    if key not in _ENGINE_LOOPS:
+        if len(_ENGINE_LOOPS) >= 8:                 # bound the cache (FIFO)
+            _ENGINE_LOOPS.pop(next(iter(_ENGINE_LOOPS)))
+        _ENGINE_LOOPS[key] = FusedLoop(sim.params, topo, steps, None,
+                                       tuned=False)
+    loop = _ENGINE_LOOPS[key]
+    table, wstate = table_from_sim(sim)
+    result = loop.run(table, sim.state, wstate, n_ticks // steps)
+    sim.state = result.state
+    sync_workloads_from_table(sim, result.wstate)
+    return dict(loop.last_run)
+
+
 def _fields(dist: Disturbance) -> tuple:
     """A disturbance's tensors, in field order."""
     return tuple(getattr(dist, f.name) for f in dataclasses.fields(dist))

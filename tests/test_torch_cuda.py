@@ -50,7 +50,9 @@ on the card equal to the CPU (the frozen arm whole, the online arm
 through its first refit), a 1-device fleet mesh bit-equal to the
 unsharded run (and, on a host with several cards, a mesh over all of
 them), and a measured fleet tick synchronizing at its stage boundaries
-while an unmeasured one calls no synchronize.
+while an unmeasured one calls no synchronize.  The paper's experiments:
+one Table II workload's static and DIAL arms replayed on the card equal
+to the CPU with the card's congestion ``pow``, bit for bit.
 """
 
 import numpy as np
@@ -1427,6 +1429,49 @@ def test_continual_on_card_matches_cpu(cuda):
     i = cpu["refits"][0]["interval"]
     for k in ("tput_mbs", "theta_trace"):
         assert cpu[k][:i] == card[k][:i], k
+
+
+def test_table2_workload_on_card_matches_cpu(cuda, monkeypatch):
+    """One Table II workload (``benchmarks/torch_table2_h5bench.py``) at
+    3 s: the static arms over three configurations and the DIAL arm on
+    the card (graph replays) against the CPU with the card's congestion
+    ``pow`` (``pow_cr``'s plain version in place of numpy's ``power``):
+    delivered bytes bit-equal, θ trajectories identical, the same
+    optimal configuration."""
+    import os
+    import sys
+
+    from repro_torch.kernels.pow_cr.ref import pow_cr_ref
+    from repro_torch.pfs import state
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import benchmarks.torch_table2_h5bench as t2
+
+    numpy_pow = state._pow
+    monkeypatch.setattr(state, "_pow", lambda x, e: (
+        pow_cr_ref(x, e) if x.device.type == "cpu" else numpy_pow(x, e)))
+    rng = np.random.default_rng(11)
+    forests = [random_forest(rng, feature_dim(op), 20, 4)
+               for op in (READ, WRITE)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        LAUNCHES.clear()
+        runs[str(dev)] = (t2.measure(
+            model_from_numpy(*forests, device=dev),
+            configs=[(256, 8), (16, 1), (1024, 32)], seconds=3.0,
+            workloads=t2.WORKLOADS[3:4], device=dev)[0], dict(LAUNCHES))
+    (cpu, launches_c), (card, launches_d) = runs["cpu"], runs[str(cuda)]
+    assert launches_c == {}
+    assert {"segment_sum", "pow_cr", "paired_forest_margin"} <= set(
+        launches_d)
+    for (cfg_c, a), (cfg_d, b) in zip(cpu["grid"], card["grid"]):
+        assert cfg_c == cfg_d and a.done_bytes == b.done_bytes, cfg_c
+    assert t2.row(card) == t2.row(cpu)
+    assert t2.trajectory(card["dial"].fleet) == \
+        t2.trajectory(cpu["dial"].fleet)
+    assert card["dial"].done_bytes == cpu["dial"].done_bytes
+    assert card["dial"].fleet.loop.last_run["graph"] is True
 
 
 def test_one_device_mesh_equals_unsharded(cuda):

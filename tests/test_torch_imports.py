@@ -229,3 +229,60 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                                    if k != "PYTHONPATH"})
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+# the paper's experiments and the examples: each script's ``main`` without
+# ``--device`` must refuse to run (a RuntimeError naming CUDA) before it
+# touches a model file, and importing all six pulls in neither JAX nor
+# the reference
+SCRIPTS = ("benchmarks/torch_table2_h5bench.py",
+           "benchmarks/torch_fig3_dlio.py", "examples/torch_quickstart.py",
+           "examples/torch_dial_vs_static.py",
+           "examples/torch_serve_batch.py",
+           "examples/torch_train_with_dial.py")
+
+_SCRIPT_PROBE = r"""
+import importlib.util, sys
+from repro_torch.core import dataset
+mains = [("repro_torch.core.dataset", dataset.main)]
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("probe_" + str(len(mains)),
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mains.append((path, mod.main))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print("imports", bad)
+for name, main in mains:
+    try:
+        main(["--model", "no/such/model"] if "benchmarks" in name else [])
+        print("ran", name)
+    except RuntimeError as e:
+        print("raised", name, "CUDA" in str(e))
+"""
+
+
+def test_paper_scripts_stand_alone_and_need_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is valid here")
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPT_PROBE,
+         *(str(ROOT / s) for s in SCRIPTS)], env=_env(), cwd=ROOT,
+        capture_output=True, text=True, timeout=120, check=True,
+    ).stdout.splitlines()
+    assert out[0] == "imports []"
+    assert out[1:] == [f"raised {name} True" for name in
+                       ["repro_torch.core.dataset",
+                        *(str(ROOT / s) for s in SCRIPTS)]]
+
+
+def test_paper_scripts_import_neither_jax_nor_reference():
+    for rel in SCRIPTS:
+        for line in (ROOT / rel).read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                mod = words[1]
+                assert not mod.startswith(("jax", "repro.")), (rel, line)
+                assert mod not in ("repro", "jax"), (rel, line)

@@ -258,6 +258,16 @@ def log(*a):
     print(*a, flush=True)
 
 
+def nvidia_smi() -> str:
+    """Each visible card's name and power limit, a line each, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip()
+
+
 def max_sm_clock_mhz() -> float:
     """The card's highest SM clock, as ``nvidia-smi`` reports it."""
     out = subprocess.run(
@@ -1354,6 +1364,9 @@ BF16_ROW_REL = 5e-2
 # the decode form's row log-sum-exp against the plain version's (float32
 # sums of exp of the same bf16 scores, in another order)
 LSE_ATOL = 2e-3
+# the float32 form's: the same logits to float32 rounding, summed in
+# another order (a row's log-sum-exp is ~1-50 here)
+F32_LSE_ATOL = 2e-5
 # each new kernel: the layer kinds that run it
 SERVE_KERNELS = {"flash_attention": {"attn", "attn_local", "moe"},
                  "rglru_scan": {"recurrent"}, "selective_scan": {"mamba"}}
@@ -1534,11 +1547,16 @@ def check_flash_attention(dev) -> dict:
     (D = 64), and the GQA groups of 12 of starcoder2-15b and of 7 of
     llava-next-34b over its image prefix) and at the decode step after
     each (Sq = 1 on a cache view), at the batch phases 8 and 13 serve,
-    in bf16 and float32 (each shape through the form the wrapper picks
-    for it), against the plain version, timed beside SDPA where it
-    applies (no softcap).  bf16 is held at atol 3e-2 and, so that a
-    dropped or doubled key split or tile shows, each row within
-    BF16_ROW_REL of its RMS."""
+    and at rank 3's first decode step of gemma2-2b's 4 x 1 sequence-sharded
+    serve (the four-card check: its 4,096 live keys of a local layer are
+    positions 4,065-8,160 of that rank's 8,192-position cache shard), in
+    bf16 and float32 (each shape through the form the wrapper picks for
+    it), against the plain version, timed beside SDPA where it applies
+    (no softcap).  bf16 is held at atol 3e-2 and, so that a dropped or
+    doubled key split or tile shows, each row within BF16_ROW_REL of its
+    RMS.  The rows' log-sum-exp, which a sequence-sharded decode merges
+    by: the float32 form's at every shape, the decode form's at Sq = 1,
+    the output bit-equal to the call without it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import \
@@ -1547,9 +1565,10 @@ def check_flash_attention(dev) -> dict:
 
     b, s = SERVE["batch"], SERVE["prompt_len"]
     img = 2880           # llava-next-34b's image positions before its text
-    # (what, batch, Hq, Hkv, prompt positions, decode, window, softcap, D);
+    # (what, batch, Hq, Hkv, prompt positions, decode, window, softcap, D)
     # a decode step is the last of the serve run's, on a cache of the
-    # prompt and the generated tokens
+    # prompt and the generated tokens; an eleventh field (cache positions,
+    # the view's end) places it in a shard
     shapes = [("recurrentgemma-9b prefill", b, 16, 1, s, False, 2048, 0.0,
                256),
               ("gemma2-2b local prefill", b, 8, 4, s, False, 4096, 50.0, 256),
@@ -1566,12 +1585,14 @@ def check_flash_attention(dev) -> dict:
             ("llava-next-34b", 1, 56, 8, img + s, 128)):
         shapes += [(f"{what} prefill", bf, hq, hkv, sp, False, None, 0.0, d),
                    (f"{what} decode", bf, hq, hkv, sp, True, None, 0.0, d)]
+    shapes.append(("gemma2-2b 4 x 1 decode, rank 3's shard", 1, 8, 4, None,
+                   True, 4096, 50.0, 256, (8192, 8161)))
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     cases = []
-    for what, b, hq, hkv, sp, decode, window, cap, d in shapes:
-        smax = sp + SERVE["gen_tokens"]
-        cur = smax - 1       # the last decode step's position
+    for what, b, hq, hkv, sp, decode, window, cap, d, *shard in shapes:
+        smax, end = shard[0] if shard else (sp + SERVE["gen_tokens"],) * 2
+        cur = end - 1        # the decode step's position in the view
         sq = 1 if decode else sp
         skv = min(cur + 1, window or smax) if decode else sp
         q = torch.randn((b, sq, hq, d), generator=g, device=dev,
@@ -1602,7 +1623,18 @@ def check_flash_attention(dev) -> dict:
         if not torch.equal(got32, run32()):
             raise AssertionError(f"flash_attention {what} float32: two "
                                  "launches differ")
-        err32 = _close(got32, attention_ref(qf, kf, vf, **opts), 2e-5, 0.0)
+        want32, want_lse32 = attention_ref(qf, kf, vf, return_lse=True,
+                                           **opts)
+        err32 = _close(got32, want32, 2e-5, 0.0)
+        del want32
+        run32_lse = lambda: flash_attention_cuda(  # noqa: E731
+            qf, kf, vf, return_lse=True, **opts)
+        o_l32, lse32 = run32_lse()
+        if not torch.equal(o_l32, got32):
+            raise AssertionError(f"flash_attention {what} float32: the "
+                                 "output with the log-sum-exp differs")
+        lse_err32 = _close(lse32, want_lse32, F32_LSE_ATOL, 0.0)
+        del o_l32, lse32, want_lse32
         lse_err = None
         if sq == 1:    # the decode form's optional row log-sum-exp
             o_l, lse = flash_attention_cuda(q, k, v, return_lse=True, **opts)
@@ -1615,11 +1647,16 @@ def check_flash_attention(dev) -> dict:
         # time comes from a CUDA graph, the eager loop's beside it
         timed = time_ms_graph if sq == 1 else lambda fn: time_ms(fn, 3)
         ms32 = timed(run32)
+        ms32_lse = time_ms_graph(run32_lse) if sq == 1 else None
         del qf, kf, vf, got32
         pairs = _band_pairs(sq, skv, window)
         n_ops = 4 * d * pairs * b * hq
         nbytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+        # float32 with the log-sum-exp: twice the bytes and one float per
+        # row, the same operations at the float32 rate
+        t32_bytes = (2 * nbytes + 4 * b * hq * sq) / HBM_BYTES_PER_S
+        t32_ops = n_ops / F32_OPS_PER_S
         library_ms = None
         if cap == 0.0:
             qi = torch.arange(sq, device=dev)[:, None] + (skv - sq)
@@ -1639,8 +1676,13 @@ def check_flash_attention(dev) -> dict:
                     library_ms=library_ms,
                     bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    ms_f32_lse=ms32_lse,
+                    bound_ms_f32_lse=max(t32_bytes, t32_ops) * 1e3,
+                    bound_by_f32_lse="bytes" if t32_bytes >= t32_ops
+                    else "operations",
                     max_abs_err=err, max_row_rel_err=rel,
-                    max_abs_err_f32=err32, lse_max_abs_err=lse_err)
+                    max_abs_err_f32=err32, lse_max_abs_err=lse_err,
+                    lse_max_abs_err_f32=lse_err32)
         cases.append(case)
         log(f"flash_attention[{what}] B={b} Hq={hq} Hkv={hkv} Sq={sq} "
             f"Skv={skv} D={d} window={window} softcap={cap}: bf16 "
@@ -1648,7 +1690,12 @@ def check_flash_attention(dev) -> dict:
             f"{rel:.3e}), float32 {err32:.3e}; kernel "
             f"bf16 ({case['form']}) {case['ms']:.4f} ms, float32 "
             f"({case['form_f32']}) {ms32:.4f} ms"
-            + (f", log-sum-exp |kernel - plain| {lse_err:.3e}"
+            + (f" ({ms32_lse:.4f} ms with the log-sum-exp, bound "
+               f"{case['bound_ms_f32_lse']:.4f} ms "
+               f"({case['bound_by_f32_lse']}))" if ms32_lse is not None
+               else "")
+            + f", float32 log-sum-exp |kernel - plain| {lse_err32:.3e}"
+            + (f", bf16 log-sum-exp |kernel - plain| {lse_err:.3e}"
                if lse_err is not None else "")
             + (f" (CUDA graph; eager bf16 {case['eager_ms']:.4f} ms a call)"
                if sq == 1 else "") + f", plain bf16 "
@@ -1659,14 +1706,22 @@ def check_flash_attention(dev) -> dict:
         del q, k, v, got
         torch.cuda.empty_cache()
     head = cases[0]
+    lse_f32 = max(c["lse_max_abs_err_f32"] for c in cases)
+    lse_bf16 = max(c["lse_max_abs_err"] for c in cases
+                   if c["lse_max_abs_err"] is not None)
+    log(f"flash_attention: the rows' log-sum-exp, worst |kernel - plain| "
+        f"float32 {lse_f32:.3e} (atol {F32_LSE_ATOL}, {len(cases)} shapes), "
+        f"bf16 decode {lse_bf16:.3e} (atol {LSE_ATOL})")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:31",
                 max_abs_err=head["max_abs_err"],
+                lse_max_abs_err_f32=lse_f32, lse_max_abs_err=lse_bf16,
                 tolerance="bf16 atol 3e-2 and each row within "
-                f"{BF16_ROW_REL} of its RMS, float32 atol 2e-5, the decode "
-                f"form's row log-sum-exp atol {LSE_ATOL}, vs the plain "
-                "version on the same inputs; two launches bit-equal",
+                f"{BF16_ROW_REL} of its RMS, float32 atol 2e-5, the rows' "
+                f"log-sum-exp atol {F32_LSE_ATOL} (float32 form) and "
+                f"{LSE_ATOL} (bf16 decode form), vs the plain version on "
+                "the same inputs; two launches bit-equal",
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=head["library_ms"], shape=head["shape"],
@@ -3748,18 +3803,18 @@ def _mesh_rank(rank: int, world: int, job: dict) -> None:
     import torch
     import torch.distributed as dist
 
+    from repro_torch.launch.mesh import end_run_on_error
+
     torch.cuda.set_device(rank)
     dist.init_process_group(
         "nccl", init_method=job["init"], rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=600),
         device_id=torch.device("cuda", rank))
-    try:
+    with end_run_on_error(rank):
         res = _mesh_work(rank, job)
         if rank == 0:
             with open(job["out"], "w") as f:
                 json.dump(res, f)
-    finally:
-        dist.destroy_process_group()
 
 
 def _sync_ms(fn):
@@ -4217,7 +4272,7 @@ def _serve_mesh_rank(rank: int, world: int, job: dict) -> None:
     import torch.distributed as dist
 
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.mesh import end_run_on_error, make_test_mesh
     from repro_torch.launch.serve import serve
 
     torch.cuda.set_device(rank)
@@ -4225,7 +4280,7 @@ def _serve_mesh_rank(rank: int, world: int, job: dict) -> None:
         "nccl", init_method=job["init"], rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=600),
         device_id=torch.device("cuda", rank))
-    try:
+    with end_run_on_error(rank):
         dev = torch.device("cuda", rank)
         mesh = make_test_mesh(*job["shape"])
         res = {}
@@ -4256,8 +4311,6 @@ def _serve_mesh_rank(rank: int, world: int, job: dict) -> None:
         if rank == 0:
             with open(job["out"], "w") as f:
                 json.dump(res, f)
-    finally:
-        dist.destroy_process_group()
 
 
 def run_serve_mesh(build: str, seed: int, archs=SERVE_ARCHS) -> tuple:
@@ -4358,7 +4411,8 @@ def _serve_compare_rank(rank: int, world: int, job: dict) -> None:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import end_run_on_error, make_test_mesh
     from repro_torch.launch.serve import place_on_mesh
 
     torch.cuda.set_device(rank)
@@ -4368,9 +4422,10 @@ def _serve_compare_rank(rank: int, world: int, job: dict) -> None:
         device_id=torch.device("cuda", rank))
     dev = torch.device("cuda", rank)
     n, seed = job["steps"], job["seed"]
-    try:
+    with end_run_on_error(rank):
         for i, (arch, shape, b, s, max_len) in enumerate(job["cases"]):
             one = os.path.join(job["dir"], f"one_{arch}_{b}x{s}.pt")
+            t0 = time.perf_counter()
             if rank == 0 and not os.path.exists(one):
                 with torch.no_grad():
                     params, prompts, cfg = _compare_inputs(
@@ -4386,6 +4441,9 @@ def _serve_compare_rank(rank: int, world: int, job: dict) -> None:
                 del params, prompts, lg, lg32
                 gc.collect()
                 torch.cuda.empty_cache()
+                log(f"rank 0: case {i} ({arch}, batch {b}, {s} prompt "
+                    f"tokens) on one card, bf16 and float32: "
+                    f"{time.perf_counter() - t0:.1f} s")
             dist.barrier()
             feed = torch.load(one)["feed"]
             mesh = make_test_mesh(*shape)
@@ -4395,9 +4453,16 @@ def _serve_compare_rank(rank: int, world: int, job: dict) -> None:
                                                        dt)
                 params, prompts, _ = place_on_mesh(params, prompts, None,
                                                    mesh)
+                LAUNCHES.clear()
+                t0 = time.perf_counter()
                 with torch.no_grad():
                     res[dt] = _greedy_steps(params, prompts, cfg, max_len, n,
                                             feed=feed)
+                log(f"rank {rank}: case {i} ({arch}, "
+                    f"{'x'.join(map(str, shape))}) {dt} on the mesh: "
+                    f"{time.perf_counter() - t0:.1f} s; launches "
+                    + (", ".join(f"{k}={v}" for k, v in LAUNCHES.items())
+                       or "none"))
                 del params, prompts
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -4405,8 +4470,6 @@ def _serve_compare_rank(rank: int, world: int, job: dict) -> None:
                 torch.save(res, os.path.join(job["dir"], f"case{i}.pt"))
             del res
             dist.barrier()
-    finally:
-        dist.destroy_process_group()
 
 
 def _tree_float(tree):
@@ -4474,7 +4537,11 @@ def run_serve_compare(build: str, seed: int, cases=None) -> list:
     job = dict(seed=seed, cases=[list(c) for c in cases], dir=build,
                steps=COMPARE_STEPS,
                init="file://" + os.path.join(build, "init"))
+    log("four-card check on: " + "; ".join(nvidia_smi().splitlines()))
+    t0 = time.perf_counter()
     mp.spawn(_serve_compare_rank, args=(4, job), nprocs=4, join=True)
+    log(f"four-card check: {len(cases)} cases served in "
+        f"{time.perf_counter() - t0:.1f} s")
     out, faults = [], []
     for i, (arch, shape, b, s, max_len) in enumerate(cases):
         r = torch.load(os.path.join(build, f"case{i}.pt"))
@@ -4879,10 +4946,7 @@ def main(argv=None) -> int:
     from repro_torch import _build
 
     # 1. provenance
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip()
+    smi = nvidia_smi()
     log(f"provenance: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}, nvidia-smi: {smi}")

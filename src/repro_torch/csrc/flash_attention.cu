@@ -45,7 +45,11 @@
 //    CUDA cores, one block of 128 threads per (batch, q-head, 32 queries);
 //    32-key tiles staged in shared memory (rows padded to D + 1 words);
 //    each group of 8 lanes owns 2 query rows.  Tensor cores would mean
-//    TF32, which cannot hold the float32 bar of 2e-5.
+//    TF32, which cannot hold the float32 bar of 2e-5.  On request it also
+//    writes each row's log-sum-exp m + log(l) of its scaled, soft-capped
+//    logits (-inf for a row with no key), what a sequence-sharded decode
+//    merges its ranks' partial softmaxes by; the output is the same bits
+//    either way.
 //
 // Head dims: 8 (float32 form only), 16, 32, 64, 128, 160 and 256.
 
@@ -63,6 +67,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, Hq, Sq) or null; the float32 form only
   int hq, group, sq, skv, causal, window;
   float softcap, scale;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
@@ -242,6 +247,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
     for (int j = 0; j < NO; ++j) {
       og[i * a.o_ss + sub + 8 * j] = l[rr] > 0.f ? o[rr][j] / l[rr] : 0.f;
     }
+    if (a.lse != nullptr && sub == 0)  // the row group shares m and l
+      a.lse[(static_cast<long long>(b) * a.hq + h) * a.sq + i] =
+          l[rr] > 0.f ? m[rr] + logf(l[rr]) : -INFINITY;
   }
 }
 
@@ -817,15 +825,18 @@ bool aligned16(const void* p) {
 // o alike); Sq > 1.  strides: the (batch, head, sequence) strides, in
 // elements, of q, k, v and o, in that order (12 values); the last axis of
 // each is contiguous, and for form 1 q, k and v start on 16 bytes and their
-// strides are multiples of 8 elements.
+// strides are multiples of 8 elements.  lse: null, or for form 0 a
+// contiguous (B, Hq, Sq) float32 buffer for the rows' log-sum-exp.
 extern "C" int flash_attention_fwd(int form, const void* q, const void* k,
-                                   const void* v, void* o, int batch, int hq,
+                                   const void* v, void* o, float* lse,
+                                   int batch, int hq,
                                    int hkv, int sq, int skv, int d,
                                    const long long* strides, int causal,
                                    int window, float softcap, float scale,
                                    cudaStream_t stream) {
   if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || sq <= 0 ||
-      skv <= 0 || batch * static_cast<long long>(hq) > 65535) {
+      skv <= 0 || batch * static_cast<long long>(hq) > 65535 ||
+      (lse != nullptr && form != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -833,6 +844,7 @@ extern "C" int flash_attention_fwd(int form, const void* q, const void* k,
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   a.hq = hq;
   a.group = hq / hkv;
   a.sq = sq;

@@ -3,7 +3,8 @@
 One call, three launch forms, picked by :func:`attention_form` from Sq and
 the dtype: ``decode`` (bf16, Sq = 1: split-KV partials and an ordered
 combine), ``mma`` (bf16 prefill on tensor cores) and ``cuda_core``
-(float32, any Sq).  ``LAUNCHES["flash_attention"]`` counts one per call; the
+(float32, any Sq).  ``decode`` and ``cuda_core`` can also write each
+row's log-sum-exp; ``mma`` cannot, and refuses the request.  ``LAUNCHES["flash_attention"]`` counts one per call; the
 decode form's combine launch counts under ``flash_attention_combine``.
 A bf16 head dim of 8 (the smoke configs of starcoder2-15b and
 llava-next-34b) runs the D = 16 instantiation on q, k and v padded with
@@ -38,7 +39,7 @@ def _entry(name):
         fn = getattr(_build.library("flash_attention"), name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = {
-            "flash_attention_fwd": [i32] + [ptr] * 4 + [i32] * 6 + [ptr]
+            "flash_attention_fwd": [i32] + [ptr] * 5 + [i32] * 6 + [ptr]
             + [i32] * 2 + [f32] * 2 + [ptr],
             "flash_attention_decode": [ptr] * 5 + [i32] * 5 + [ptr]
             + [i32] * 3 + [f32] * 2 + [ptr],
@@ -103,7 +104,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16), any strides with a contiguous last axis (a cache slice is
     passed as a view); the decode and bf16 forms also need 16-byte aligned
     q/k/v rows.  Returns ``(B, Hq, Sq, D)`` in q's dtype, laid
-    out ``(B, Sq, Hq, D)`` in memory (a transposed view).  Raises
+    out ``(B, Sq, Hq, D)`` in memory (a transposed view); with
+    ``return_lse`` also each row's float32 log-sum-exp ``(B, Hq, Sq)``
+    (``-inf`` for a row with no key), which the decode and float32 forms
+    give and the bf16 prefill form refuses (``ValueError``).  Raises
     ``RuntimeError`` on inputs that require a gradient (the kernel has
     no backward).
     """
@@ -130,10 +134,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_cuda: the head axis must be "
                          "contiguous")
     form = attention_form(sq, q.dtype)
-    if return_lse and form != "decode":
-        raise ValueError("flash_attention_cuda: the log-sum-exp output is "
-                         f"the bf16 decode form's (Sq = 1); got the {form} "
-                         "form")
+    if return_lse and form == "mma":
+        raise ValueError("flash_attention_cuda: the bf16 prefill (mma) "
+                         "form gives no log-sum-exp; the decode (bf16, "
+                         "Sq = 1) and float32 forms do")
     scale = float(d ** -0.5)
     if form != "cuda_core" and d not in MMA_HEAD_DIMS:
         widen = lambda t: F.pad(t, (0, 16 - d))  # noqa: E731
@@ -185,10 +189,12 @@ def _launch(form, q, k, v, causal, window, softcap, scale, return_lse=False):
         return (out, lse) if return_lse else out
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    lse = torch.empty((b, hq, sq), dtype=torch.float32,
+                      device=dev) if return_lse else None
     _check(_entry("flash_attention_fwd")(
         1 if form == "mma" else 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, hq, hkv, sq, skv, d, ctypes.addressof(strides),
-        int(causal), window, float(softcap), scale, stream),
-        "flash_attention_fwd")
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, hq, hkv,
+        sq, skv, d, ctypes.addressof(strides), int(causal), window,
+        float(softcap), scale, stream), "flash_attention_fwd")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out

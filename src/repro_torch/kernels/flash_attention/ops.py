@@ -23,7 +23,8 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     contiguous on the card); ``window`` None or <= 0 disables the
     sliding window.  ``return_lse`` also returns each row's float32
     log-sum-exp (B, Hq, Sq) (``-inf`` for a row with no key); on the
-    card only the bf16 decode form gives it."""
+    card the bf16 decode form (Sq = 1) and the float32 form give it, the
+    bf16 prefill form raises."""
     window = window if window is not None and window > 0 else None
     if q.device.type == "cpu":
         out = attention_ref(q, k, v, causal=causal, window=window,

@@ -5,9 +5,17 @@ constants, so importing this module touches no device.  The LM's mesh
 is a ``DeviceMesh`` over the process group the caller initialised (one
 process per card, NCCL; ``gloo`` on the CPU when the caller asks for
 it); the fleet mesh is a tuple of devices in one process.
+:func:`end_run_on_error` holds one rank of such a run, so that a rank
+that raises ends every rank.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
+import sys
+import time
+import traceback
 
 
 def make_production_mesh(*, multi_pod: bool = False,
@@ -63,3 +71,26 @@ def make_fleet_mesh(n_devices: int | None = None) -> tuple:
     from repro_torch.distributed.sharding import fleet_mesh
 
     return fleet_mesh(n_devices)
+
+
+@contextlib.contextmanager
+def end_run_on_error(rank: int):
+    """Hold one rank of a run of one process a rank (``torch.multiprocessing
+    .spawn`` over an initialised process group).  When the body raises,
+    print the rank and its traceback (flushed) and end this process at
+    once with exit code 1, skipping ``destroy_process_group`` (NCCL's can
+    wait on peers), so that ``spawn`` ends the other ranks within its
+    grace period instead of leaving them in a collective until the
+    group's timeout; the run still fails.  When the body returns,
+    destroy the default process group."""
+    import torch.distributed as dist
+
+    try:
+        yield
+    except Exception:
+        sys.stdout.flush()
+        print(f"rank {rank} raised at unix time {time.time():.3f}; ending "
+              f"every rank:\n{traceback.format_exc()}", file=sys.stderr,
+              flush=True)
+        os._exit(1)
+    dist.destroy_process_group()

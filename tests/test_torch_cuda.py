@@ -563,6 +563,10 @@ def test_flash_attention_kernel_zero_rows_and_checks(cuda):
     out = attention(q, k, k)                    # queries 0-35 see no key
     assert not out[:, :, :36].any()
     assert float((out - attention_ref(q, k, k)).abs().max()) < 2e-5
+    _, lse = flash_attention_cuda(q, k, k, return_lse=True)
+    assert bool((lse[:, :, :36] == float("-inf")).all())
+    want = attention_ref(q, k, k, return_lse=True)[1]
+    assert float((lse[:, :, 36:] - want[:, :, 36:]).abs().max()) < 2e-5
     with pytest.raises(ValueError, match="head dims"):
         flash_attention_cuda(q[..., :24], k[..., :24], k[..., :24])
     with pytest.raises(ValueError, match="dtype"):
@@ -633,6 +637,42 @@ def test_flash_attention_bf16_prefill_form(cuda, d, sq, skv, window,
     assert _row_rel(got, want) < BF16_ROW_REL
     blind = max(0, sq - skv) if causal else 0      # rows before every key
     assert not got[:, :, :blind].any()
+
+
+# the rows' log-sum-exp: float32 against the plain version's (float32
+# sums of the same logits in another order), bf16 as chip_smoke.py holds
+# the decode form's
+F32_LSE_ATOL, BF16_LSE_ATOL = 2e-5, 2e-3
+
+
+@pytest.mark.parametrize("sq", [1, 37])
+def test_flash_attention_log_sum_exp_on_a_shard_view(cuda, sq):
+    """The rows' log-sum-exp where gemma2-2b's 4 x 1 sequence-sharded
+    decode asks for it: rank 3's slice of a 32,768-position cache (keys
+    4,065-8,160 of its 8,192 positions, a view) under a 4,096-key window,
+    softcap 50, 8 q heads on 4 kv heads at D = 256, for one query and for
+    37.  float32 (the CUDA-core form, any Sq) and bf16 at Sq = 1 (the
+    decode form) against the plain version, the output bit-equal with
+    and without it; the bf16 prefill form refuses the request."""
+    g = torch.Generator().manual_seed(sq)
+    cache = torch.randn((2, 1, 4, 8192, 256), generator=g).to(cuda)
+    q = torch.randn((1, sq, 8, 256), generator=g).to(cuda).transpose(1, 2)
+    k, v = cache[0, :, :, 4065:8161], cache[1, :, :, 4065:8161]
+    opts = dict(window=4096, softcap=50.0)
+    for dtype, atol in ((torch.float32, F32_LSE_ATOL),
+                        (torch.bfloat16, BF16_LSE_ATOL)):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        if dtype == torch.bfloat16 and sq > 1:
+            with pytest.raises(ValueError, match="mma"):
+                flash_attention_cuda(qd, kd, vd, return_lse=True, **opts)
+            continue
+        out, lse = flash_attention_cuda(qd, kd, vd, return_lse=True, **opts)
+        assert torch.equal(out, flash_attention_cuda(qd, kd, vd, **opts))
+        assert lse.dtype == torch.float32 and lse.shape == (1, 8, sq)
+        want_out, want = attention_ref(qd, kd, vd, return_lse=True, **opts)
+        assert float((lse - want).abs().max()) < atol
+        assert float((out.float() - want_out).abs().max()) < (
+            2e-5 if dtype == torch.float32 else 3e-2)
 
 
 @pytest.mark.parametrize("b,s,w", [(2, 32, 64), (3, 17, 100),

@@ -13,12 +13,17 @@ against the same step of the unsharded port in this process:
 (b) Sharded prefill and 8 greedy decode steps of gemma2-2b,
     recurrentgemma-9b, falcon-mamba-7b, stablelm-12b and olmoe-1b-7b on
     2 x 2 and 1 x 4 (batch 4) and on 4 x 1 with batch 1, whose attention
-    caches shard their sequence over 'data' (``shard_seq``): every
-    step's logits within 1e-5 and the greedy tokens identical.
+    caches shard their sequence over 'data' (``shard_seq``), once with a
+    window across two slices and once ("4x1-tail") with every local
+    layer's keys on the last rank alone: every step's logits within 1e-5
+    and the greedy tokens identical.
 (c) On 4 x 1, the collectives of one decode step: none of an attention
     cache shard's size; an attention layer's only collectives are the
     two all-reduces that merge the ranks' partial softmaxes (the row
     log-sum-exp's max, then the weighted outputs and weights).
+(d) A rank that raises ends the run: rank 3 raises while ranks 0-2 wait
+    for it in an all-reduce; the run ends non-zero within a minute of
+    the raise, with the rank and its traceback printed.
 
 The unsharded port is held to the reference by ``test_torch_lm.py`` and
 ``test_torch_lm_families.py``.  The reference's own sharded steps do not
@@ -30,8 +35,10 @@ import dataclasses
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -56,8 +63,13 @@ OPT = dict(peak_lr=1e-2, min_lr=1e-3, warmup_steps=1, total_steps=4,
 
 SERVE_ARCHS = ("gemma2-2b", "recurrentgemma-9b", "falcon-mamba-7b",
                "stablelm-12b", "olmoe-1b-7b")
-MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}
+MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1), "4x1-tail": (4, 1)}
 PROMPT, MAX_LEN, DECODE = 16, 32, 8      # a 16-window spans two slices
+# "4x1-tail", the four-card layout of gemma2-2b at batch 1 (a prompt of
+# MAX_LEN - DECODE): at every decode step a 16-key window lies wholly in
+# the last rank's 32-position slice, so ranks 0-2 hold no live key of a
+# local layer and merge only what rank 3 gives
+TAIL_PROMPT, TAIL_MAX_LEN = 120, 128
 
 
 def _cfg(arch):
@@ -70,12 +82,18 @@ def _params(arch, seed=0):
 
 
 def _batch_size(mesh):
-    return 1 if mesh == "4x1" else 4       # batch 1: the sequence shards
+    return 1 if mesh.startswith("4x1") else 4   # batch 1: the sequence shards
+
+
+def _lengths(mesh):
+    """(prompt tokens, cache positions)."""
+    return (TAIL_PROMPT, TAIL_MAX_LEN) if mesh == "4x1-tail" else (PROMPT,
+                                                                   MAX_LEN)
 
 
 def _prompts(arch, mesh):
     return np.random.default_rng(7).integers(
-        0, _cfg(arch).vocab_size, (_batch_size(mesh), PROMPT))
+        0, _cfg(arch).vocab_size, (_batch_size(mesh), _lengths(mesh)[0]))
 
 
 def _tokens(arch, seed):
@@ -106,7 +124,7 @@ def ranks(tmp_path_factory):
             serve.append(dict(name=name, arch=arch, mesh=list(shape),
                               params=str(d / f"{arch}.pt"),
                               prompts=str(d / f"{name}.prompts.npy"),
-                              max_len=MAX_LEN, steps=DECODE,
+                              max_len=_lengths(mesh)[1], steps=DECODE,
                               record=mesh == "4x1",
                               out=str(d / f"{name}.npz")))
     job = dict(init=f"file://{d}/rendezvous", result=str(d / "result.json"),
@@ -175,14 +193,15 @@ def test_sharded_train_step_at_1x4_matches_unsharded(ranks, arch):
 def _unsharded_serve(arch, mesh) -> list:
     cfg = _cfg(arch)
     params = _params(arch)
-    prefill = make_prefill_step(cfg, MAX_LEN)
+    prompt, max_len = _lengths(mesh)
+    prefill = make_prefill_step(cfg, max_len)
     decode = make_decode_step(cfg)
     with torch.inference_mode():
         logits, cache = prefill(params, torch.as_tensor(_prompts(arch, mesh)))
         out = [logits]
         for i in range(DECODE):
             logits, cache = decode(params, logits.argmax(dim=-1), cache,
-                                   PROMPT + i)
+                                   prompt + i)
             out.append(logits)
     return [t.numpy() for t in out]
 
@@ -219,3 +238,21 @@ def test_shard_seq_decode_moves_no_cache(ranks, arch):
               or r == ["all-reduce", merged]]
     assert len(merges) == 2 * n_attn, records
     assert not [r for r in records if r[0] == "all-gather"], records
+
+
+def test_a_rank_that_raises_ends_the_run(tmp_path):
+    job = dict(init=f"file://{tmp_path}/rendezvous",
+               result=str(tmp_path / "result.json"), raise_on=3)
+    (tmp_path / "job.json").write_text(json.dumps(job))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(RANKS),
+                           str(tmp_path / "job.json")], env=env,
+                          capture_output=True, text=True, timeout=TIMEOUT_S)
+    ended = time.time()
+    assert proc.returncode != 0
+    raised = re.search(r"rank 3 raised at unix time ([0-9.]+); ending "
+                       r"every rank", proc.stderr)
+    assert raised, proc.stderr[-4000:]
+    assert "RuntimeError: rank 3 raises on purpose" in proc.stderr
+    # the group's timeout is 120 s: only the guard ends ranks 0-2 sooner
+    assert ended - float(raised.group(1)) < 60.0

@@ -25,7 +25,9 @@ The job (JSON) names a ``file://`` rendezvous, the result path, and:
   (``.npz``), and for a batch-1 case the collectives of one decode step
   (:class:`repro_torch.utils.roofline.CollectiveRecorder`) beside the
   bytes of each rank's attention cache shard;
-- the mesh of the wrong size, which must raise, and a multi-pod one.
+- the mesh of the wrong size, which must raise, and a multi-pod one;
+- ``raise_on``: that rank raises while the others wait for it in an
+  all-reduce (a rank that raises must end the run).
 
 Torch only: the test compares these with the reference.
 """
@@ -267,14 +269,31 @@ def run_serve(case, rank):
     return info
 
 
+def run_raise(job, rank):
+    """The rank ``job["raise_on"]`` raises; the others wait for it in an
+    all-reduce, which only the guard's ending of the run lets go."""
+    if rank == job["raise_on"]:
+        raise RuntimeError(f"rank {rank} raises on purpose")
+    dist.all_reduce(torch.ones(1))
+
+
 def rank_main(rank, job):
+    from repro_torch.launch.mesh import end_run_on_error
+
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=job["init"], rank=rank,
                             world_size=WORLD,
                             timeout=datetime.timedelta(seconds=120))
+    with end_run_on_error(rank):
+        rank_work(rank, job)
+
+
+def rank_work(rank, job):
     out = {}
     try:
         from repro_torch.launch.mesh import make_test_mesh
+        if "raise_on" in job:
+            run_raise(job, rank)
         try:
             make_test_mesh(2, 1, device_type="cpu")
             out["wrong_size"] = "no error"
@@ -300,7 +319,6 @@ def rank_main(rank, job):
         if rank == 0:
             with open(job["result"], "w") as f:
                 json.dump(out, f)
-        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -48,6 +48,7 @@ from repro_torch.core.tuner import TunerParams
 from repro_torch.lab.scenarios import (HOST, BuiltScenario, make_schedule)
 from repro_torch.pfs.engine_torch import FusedEngine
 from repro_torch.distributed.sharding import shard_elements
+from repro_torch.obs.timers import span
 from repro_torch.pfs.loop_torch import (FusedLoop, FusedLoopResult,
                                         Intervention, decisions_from_trace)
 from repro_torch.pfs.state import (Disturbance, SimParams, SimState, SimTopo,
@@ -138,11 +139,12 @@ class ScenarioBatch:
         """The fleet's ``(n_ticks, ...)`` disturbance schedule (numpy):
         each element's own (neutral without events) in its OST and
         client columns."""
-        per = [make_schedule(s.events, self.topo, self.params, t0_tick,
-                             n_ticks) for s in self.specs]
-        return Disturbance(*(np.concatenate(
-            [getattr(d, f.name) for d in per], axis=1)
-            for f in dataclasses.fields(Disturbance)))
+        with span("lab.schedule"):
+            per = [make_schedule(s.events, self.topo, self.params, t0_tick,
+                                 n_ticks) for s in self.specs]
+            return Disturbance(*(np.concatenate(
+                [getattr(d, f.name) for d in per], axis=1)
+                for f in dataclasses.fields(Disturbance)))
 
     def stacked(self, name: str) -> np.ndarray:
         """A state field on the host with the batch's leading axis, as
@@ -309,37 +311,38 @@ def stack_scenarios(built: list[BuiltScenario], ragged: bool = True,
     both values).  ``SimParams`` must always match: the engine runs one
     physics for the whole fleet.
     """
-    if not built:
-        raise ValueError("empty scenario batch")
-    dev = resolve_device(device)
-    b0 = built[0]
-    for b in built[1:]:
-        if b.params != b0.params:
-            raise ValueError("batch elements must share SimParams "
-                             "(the engine closes over element 0's)")
-    mm = _structure_mismatch(built)
-    if mm is not None and not ragged:
-        i, field, v, v0 = mm
-        raise ValueError(
-            f"batch elements must share workload-table structure to "
-            f"stack with ragged=False: element {i} has {field}={v} but "
-            f"element 0 has {field}={v0} (drop ragged=False to pad-and-"
-            f"mask mismatched structures into one bucket)")
-    osc_cols: tuple = ()
-    if mm is not None:
-        classes = [pad_class(b) for b in built]
-        cls = (b0.params,) + tuple(
-            max(c[j] for c in classes) for j in range(1, 6))
-        built = [pad_scenario(b, cls) for b in built]
-        osc_cols = tuple(
-            np.nonzero(b.topo.osc_valid().numpy())[0].astype(np.int64)
-            for b in built)
+    with span("lab.stack"):
+        if not built:
+            raise ValueError("empty scenario batch")
+        dev = resolve_device(device)
         b0 = built[0]
-    # the shared element topology is the all-valid bucket shape; the
-    # elements' validity masks live on the fleet's topology
-    topo = (b0.topo if mm is None
-            else SimTopo.dense(b0.topo.n_clients, b0.topo.n_osts, HOST))
-    return _assemble(built, topo, osc_cols, dev)
+        for b in built[1:]:
+            if b.params != b0.params:
+                raise ValueError("batch elements must share SimParams "
+                                 "(the engine closes over element 0's)")
+        mm = _structure_mismatch(built)
+        if mm is not None and not ragged:
+            i, field, v, v0 = mm
+            raise ValueError(
+                f"batch elements must share workload-table structure to "
+                f"stack with ragged=False: element {i} has {field}={v} but "
+                f"element 0 has {field}={v0} (drop ragged=False to pad-and-"
+                f"mask mismatched structures into one bucket)")
+        osc_cols: tuple = ()
+        if mm is not None:
+            classes = [pad_class(b) for b in built]
+            cls = (b0.params,) + tuple(
+                max(c[j] for c in classes) for j in range(1, 6))
+            built = [pad_scenario(b, cls) for b in built]
+            osc_cols = tuple(
+                np.nonzero(b.topo.osc_valid().numpy())[0].astype(np.int64)
+                for b in built)
+            b0 = built[0]
+        # the shared element topology is the all-valid bucket shape; the
+        # elements' validity masks live on the fleet's topology
+        topo = (b0.topo if mm is None
+                else SimTopo.dense(b0.topo.n_clients, b0.topo.n_osts, HOST))
+        return _assemble(built, topo, osc_cols, dev)
 
 
 def bucket_scenarios(built: list[BuiltScenario], ragged: bool = True,
@@ -468,6 +471,14 @@ def run_batch(batch: ScenarioBatch, model=None, seconds: float = 10.0,
     decisions come back on the batch's device in element order, bit for
     bit the unsharded run's.
     """
+    with span("lab.run_batch"):
+        return _run_batch(batch, model, seconds, interval, tuner_params,
+                          tune_cols, engine, fused, mesh, trace, intervene,
+                          graph)
+
+
+def _run_batch(batch, model, seconds, interval, tuner_params, tune_cols,
+               engine, fused, mesh, trace, intervene, graph):
     steps = max(int(round(interval / batch.params.tick)), 1)
     n_intervals = int(round(seconds / interval))
 

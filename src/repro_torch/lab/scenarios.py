@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config_space import DEFAULT
+from repro_torch.obs.timers import span
 from repro_torch.pfs.state import (READ, WRITE, Disturbance, SimParams,
                                    SimState, SimTopo, init_state)
 from repro_torch.pfs.workloads import (WorkloadState, WorkloadTable,
@@ -272,17 +273,18 @@ class BuiltScenario:
 def build(spec: ScenarioSpec, params: SimParams | None = None) -> BuiltScenario:
     """Materialize a spec on the host: topology, frozen workload table,
     fresh state."""
-    params = params or SimParams()
-    topo = SimTopo.dense(spec.n_clients, spec.n_osts, HOST)
-    validate_events(spec.events, topo)
-    state = init_state(topo)
-    w, f = spec.initial_theta
-    state.window_pages[:] = int(w)
-    state.rpcs_in_flight[:] = int(f)
-    table = WorkloadTable.from_workloads(spec.make_workloads(), topo)
-    wstate = table.init_wstate(state)
-    return BuiltScenario(spec=spec, params=params, topo=topo, table=table,
-                         state=state, wstate=wstate)
+    with span("lab.build"):
+        params = params or SimParams()
+        topo = SimTopo.dense(spec.n_clients, spec.n_osts, HOST)
+        validate_events(spec.events, topo)
+        state = init_state(topo)
+        w, f = spec.initial_theta
+        state.window_pages[:] = int(w)
+        state.rpcs_in_flight[:] = int(f)
+        table = WorkloadTable.from_workloads(spec.make_workloads(), topo)
+        wstate = table.init_wstate(state)
+        return BuiltScenario(spec=spec, params=params, topo=topo, table=table,
+                             state=state, wstate=wstate)
 
 
 def _jitter_event(ev: DisturbanceEvent, rng) -> DisturbanceEvent:

@@ -6,7 +6,8 @@ timelines as more outputs of the fused loop's interval (static buffers
 of its CUDA graph on the card), mirrored record for record by the host
 loop's :class:`HostTracer`, both kept on the device until the run ends
 -- plus the host-side sinks (JSONL, Chrome ``trace_event``, markdown),
-phase timers, run provenance and counterfactual loss diagnosis.
+the host spans and phase timers, run provenance and counterfactual loss
+diagnosis.
 """
 
 from repro_torch.obs.diagnose import (ARMS, CAUSES, DIAGNOSIS_SCHEMA,
@@ -21,7 +22,8 @@ from repro_torch.obs.sinks import (chrome_trace, read_jsonl,
                                    read_jsonl_diagnosis, render_summary,
                                    write_chrome, write_jsonl)
 from repro_torch.obs.timers import (PhaseTimers, collect_provenance,
-                                    compile_execute_split)
+                                    compile_execute_split, span, spans,
+                                    profiler_offset_ns)
 
 __all__ = [
     "TRACE_SCHEMA", "DECISION_FIELDS", "TIMELINE_FIELDS",
@@ -31,4 +33,5 @@ __all__ = [
     "DIAGNOSIS_SCHEMA", "CAUSES", "ARMS", "DiagnoseConfig", "diagnose",
     "cause_counts", "write_diagnosis_report", "render_diagnosis_markdown",
     "PhaseTimers", "compile_execute_split", "collect_provenance",
+    "span", "spans", "profiler_offset_ns",
 ]

@@ -1,10 +1,23 @@
-"""Lightweight host-phase timers and run provenance.
+"""The port's host spans, host-phase timers and run provenance.
 
-The counterpart of the reference's ``repro/obs/timers.py``.
-:class:`PhaseTimers` gives the host its phase breakdown at near-zero
-cost (``perf_counter`` pairs); a phase that times device work passes its
-device and ends in ``torch.cuda.synchronize()``, where the reference
-blocks on its result.  :func:`compile_execute_split` separates a
+:class:`span` is the package's host-span recorder: a context manager
+that stamps its block on ``time.perf_counter_ns()`` and, when the block
+ends, appends ``(name, start_ns, end_ns, id, parent, root)`` to a
+bounded process-wide ring (``parent`` the enclosing span's id, ``root``
+the outermost one's, so the spans of one call share it).  Spans are
+always on, at phase granularity: the Scenario Lab's build, stack and
+schedule, and the fused loop's prepare, graph capture, intervals and
+finish (``docs/OBSERVABILITY_TORCH.md`` lists them).  :func:`spans`
+reads the finished ones inside a window; :func:`profiler_offset_ns` is
+what puts a stamp on ``torch.profiler``'s clock (the wall clock,
+``time.time_ns()``), so a trace's device idle gaps can be put down to
+the program's spans.
+
+The counterpart of the reference's ``repro/obs/timers.py``:
+:class:`PhaseTimers` gives the host its phase breakdown through the same
+spans; a phase that times device work passes its device and ends in
+``torch.cuda.synchronize()``, where the reference blocks on its result.
+:func:`compile_execute_split` separates a
 :class:`~repro_torch.pfs.loop_torch.FusedLoop` run's one-off cost (the
 warm-up interval, the CUDA graph's capture and instantiate, the
 counterpart of the reference's compile) from its replays (execute), the
@@ -18,11 +31,73 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import platform
+import statistics
 import subprocess
 import time
 
 import torch
+
+# finished spans, oldest first; a lab call makes ~4,110, so the ring
+# holds a benchmark's warm calls, its window and its profiled call
+RING_SPANS = 1 << 17
+_RING: collections.deque = collections.deque(maxlen=RING_SPANS)
+_OPEN: list = []                 # the open spans, innermost last
+_IDS = itertools.count(1)
+
+
+class span:
+    """``with span(name):`` records the block as a span (see the module
+    note).  The object keeps ``start_ns`` and ``end_ns``
+    once the block has ended.  Spans nest by the order they open in:
+    the port's host work runs on one thread."""
+
+    __slots__ = ("name", "id", "parent", "root", "start_ns", "end_ns")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.id = next(_IDS)
+        if _OPEN:
+            outer = _OPEN[-1]
+            self.parent, self.root = outer.id, outer.root
+        else:
+            self.parent, self.root = None, self.id
+        _OPEN.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.perf_counter_ns()
+        _OPEN.pop()
+        # a tuple of numbers and strings, which the garbage collector
+        # stops tracking: a full ring costs its collections nothing
+        _RING.append((self.name, self.start_ns, self.end_ns, self.id,
+                      self.parent, self.root))
+        return False
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+def spans(lo_ns: int | None = None, hi_ns: int | None = None) -> list:
+    """The finished spans that start at or after ``lo_ns`` and end at or
+    before ``hi_ns`` (``perf_counter_ns`` stamps; ``None``: unbounded),
+    oldest finished first."""
+    lo = -1 if lo_ns is None else lo_ns
+    hi = float("inf") if hi_ns is None else hi_ns
+    return [s for s in _RING if s[1] >= lo and s[2] <= hi]
+
+
+def profiler_offset_ns() -> int:
+    """What to add to a span's ``perf_counter_ns`` stamp to put it on
+    ``torch.profiler``'s clock (``time.time_ns()``): the median offset
+    of a few back-to-back paired reads of the two clocks."""
+    return statistics.median_low(
+        time.time_ns() - time.perf_counter_ns() for _ in range(5))
 
 
 def _sync(device) -> None:
@@ -31,7 +106,7 @@ def _sync(device) -> None:
 
 
 class PhaseTimers:
-    """Accumulate named wall-clock phases; ~100 ns per measurement."""
+    """Accumulate named wall-clock phases, each one :class:`span`."""
 
     def __init__(self):
         self.seconds = collections.defaultdict(float)
@@ -41,13 +116,15 @@ class PhaseTimers:
     def phase(self, name: str, device=None):
         """Time the block; with a CUDA ``device`` the phase ends when the
         work it queued there has finished."""
-        t0 = time.perf_counter()
+        timed = span(name)
         try:
-            yield
+            with timed:
+                try:
+                    yield
+                finally:
+                    _sync(device)
         finally:
-            _sync(device)
-            self.seconds[name] += time.perf_counter() - t0
-            self.calls[name] += 1
+            self.add(name, timed.seconds)
 
     def add(self, name: str, seconds: float) -> None:
         self.seconds[name] += seconds

@@ -40,6 +40,17 @@ the replays, the capture and instantiate seconds, and on the card
 ``device_ms_per_interval``, the span of its intervals on the device's
 clock (CUDA events; a replay's copies included).
 
+Host spans (:class:`repro_torch.obs.timers.span`): ``loop.prepare``; on
+a capture ``loop.graph_free`` (the old graph destroyed), ``loop.warmup``
+(the eager interval on clones, through its synchronize),
+``loop.capture`` and ``loop.instantiate``, whose durations are
+``last_run``'s seconds; ``loop.intervals`` (the replays or eager
+intervals enqueued, and the record copies); ``loop.finish`` with
+``loop.wait`` first in it (on the card, the wait for the run's device
+work).  None is inside the captured interval.  The spans carry no
+device: a loop has one, and a sharded run's loops record theirs in the
+mesh's order.
+
 Launch counts: ``LAUNCHES`` counts in Python, so a graphed run counts
 its warm-up interval and the capture, not the replays.
 ``last_run["launches_per_replay"]`` holds the launches one captured
@@ -79,7 +90,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -95,6 +105,7 @@ from repro_torch.kernels.gbdt_forest.ops import (pair_forests,
                                                  paired_forest_margin,
                                                  sigmoid32)
 from repro_torch.obs.schema import TraceConfig, timeline_tap
+from repro_torch.obs.timers import span
 from repro_torch.pfs.state import (F64, READ, WRITE, Disturbance, SimParams,
                                    SimState, SimTopo, engine_step)
 from repro_torch.pfs.workloads import WorkloadState, WorkloadTable
@@ -315,6 +326,7 @@ class _Graph:
     launches: collections.Counter    # kernel launches one replay makes
     capture_s: float
     instantiate_s: float | None      # None: timed with the capture
+    warmup_s: float
 
 
 class FusedLoop:
@@ -486,6 +498,12 @@ class FusedLoop:
         device tensors; the snapshot ring starts at zeros.  A batch's
         leading axis is flattened into the fleet's columns (see the
         module note); the default tune mask is every real interface."""
+        with span("loop.prepare"):
+            return self._prepare(state, wstate, n_intervals, schedule,
+                                 tune_mask, intervene)
+
+    def _prepare(self, state, wstate, n_intervals, schedule, tune_mask,
+                 intervene) -> _Inputs:
         dev = self.device
         n = self.topo.n_osc
         if intervene is not None and not self.tuned:
@@ -540,19 +558,21 @@ class FusedLoop:
     def _capture(self, table: WorkloadTable, inputs: _Inputs) -> _Graph:
         """Warm up on clones (side stream), then capture one interval."""
         dev = self.device
-        static = inputs.carry.clone()
-        dist = self._slice(inputs.schedule, 0)
-        if dist is not None:
-            dist = Disturbance(*(a.clone() for a in _fields(dist)))
-        mask = None if inputs.tune_mask is None else inputs.tune_mask.clone()
-        iv = (None if inputs.intervene is None
-              else Intervention(*(a.clone() for a in inputs.intervene)))
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._interval(table, static.clone(), dist, mask, iv)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
+        with span("loop.warmup") as warm:
+            static = inputs.carry.clone()
+            dist = self._slice(inputs.schedule, 0)
+            if dist is not None:
+                dist = Disturbance(*(a.clone() for a in _fields(dist)))
+            mask = (None if inputs.tune_mask is None
+                    else inputs.tune_mask.clone())
+            iv = (None if inputs.intervene is None
+                  else Intervention(*(a.clone() for a in inputs.intervene)))
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._interval(table, static.clone(), dist, mask, iv)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
 
         try:                    # instantiate apart, where torch allows it
             graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -562,25 +582,24 @@ class FusedLoop:
         if not split:
             graph = torch.cuda.CUDAGraph()
         before = collections.Counter(LAUNCHES)
-        t0 = time.perf_counter()
-        # the capture stream is the loop's device's (torch's default one
-        # is made once, on whichever device was current then)
-        with torch.cuda.graph(graph, stream=side):
-            new, record = self._interval(table, static, dist, mask, iv)
-            for dst, src in zip(static.tensors(), new.tensors()):
-                dst.copy_(src)
-        torch.cuda.synchronize(dev)
-        capture_s = time.perf_counter() - t0
+        with span("loop.capture") as cap:
+            # the capture stream is the loop's device's (torch's default
+            # one is made once, on whichever device was current then)
+            with torch.cuda.graph(graph, stream=side):
+                new, record = self._interval(table, static, dist, mask, iv)
+                for dst, src in zip(static.tensors(), new.tensors()):
+                    dst.copy_(src)
+            torch.cuda.synchronize(dev)
         instantiate_s = None
         if split:
-            t0 = time.perf_counter()
-            graph.instantiate()
-            torch.cuda.synchronize(dev)
-            instantiate_s = time.perf_counter() - t0
+            with span("loop.instantiate") as inst:
+                graph.instantiate()
+                torch.cuda.synchronize(dev)
+            instantiate_s = inst.seconds
         launches = collections.Counter(LAUNCHES)
         launches.subtract(before)
         return _Graph(graph, static, dist, mask, iv, record,
-                      +launches, capture_s, instantiate_s)
+                      +launches, cap.seconds, instantiate_s, warm.seconds)
 
     def advance(self, table: WorkloadTable, inputs: _Inputs,
                 n_intervals: int, graph: bool | None = None):
@@ -610,55 +629,57 @@ class FusedLoop:
                    torch.cuda.Event(enable_timing=True)) if on_card
                   else None)
         if not graph:
-            carry = inputs.carry
-            if events:
-                events[0].record()
-            for i in range(n_intervals):
-                carry, rec = self._interval(
-                    table, carry, self._slice(inputs.schedule, i),
-                    inputs.tune_mask, inputs.intervene)
-                if rec is not None:
-                    if records is None:
-                        records = buffers(rec)
-                    for k, v in rec.items():
-                        records[k][i] = v
-            if events:
-                events[1].record()
+            with span("loop.intervals"):
+                carry = inputs.carry
+                if events:
+                    events[0].record()
+                for i in range(n_intervals):
+                    carry, rec = self._interval(
+                        table, carry, self._slice(inputs.schedule, i),
+                        inputs.tune_mask, inputs.intervene)
+                    if rec is not None:
+                        if records is None:
+                            records = buffers(rec)
+                        for k, v in rec.items():
+                            records[k][i] = v
+                if events:
+                    events[1].record()
             self.last_run = {"graph": False, "replays": 0, "events": events}
             return carry, records
 
         key = (table.key, inputs.schedule is None, inputs.intervene is None,
                self.trace_config)
         captured_now = self._graph is None or self._graph[0] != key
-        setup_s = 0.0
         if captured_now:
-            self._graph = None               # free the old graph first
-            t0 = time.perf_counter()
+            with span("loop.graph_free"):
+                self._graph = None           # free the old graph first
             # the entry pins the table: the graph reads its tensors
             self._graph = (key, table, self._capture(table, inputs))
-            setup_s = time.perf_counter() - t0
         g = self._graph[2]
-        for dst, src in zip(g.carry.tensors(), inputs.carry.tensors()):
-            dst.copy_(src)
-        if g.tune_mask is not None:
-            g.tune_mask.copy_(inputs.tune_mask)
-        if g.intervene is not None:
-            for dst, src in zip(g.intervene, inputs.intervene):
+        setup_s = (g.warmup_s + g.capture_s + (g.instantiate_s or 0.0)
+                   if captured_now else 0.0)
+        with span("loop.intervals"):
+            for dst, src in zip(g.carry.tensors(), inputs.carry.tensors()):
                 dst.copy_(src)
-        if g.record is not None:
-            records = buffers(g.record)
-        if events:
-            events[0].record()
-        for i in range(n_intervals):
-            if g.dist is not None:
-                for dst, src in zip(_fields(g.dist), _fields(
-                        self._slice(inputs.schedule, i))):
+            if g.tune_mask is not None:
+                g.tune_mask.copy_(inputs.tune_mask)
+            if g.intervene is not None:
+                for dst, src in zip(g.intervene, inputs.intervene):
                     dst.copy_(src)
-            g.graph.replay()
-            if records is not None:
-                for k, v in g.record.items():
-                    records[k][i].copy_(v)
-        events[1].record()
+            if g.record is not None:
+                records = buffers(g.record)
+            events[0].record()
+            for i in range(n_intervals):
+                if g.dist is not None:
+                    for dst, src in zip(_fields(g.dist), _fields(
+                            self._slice(inputs.schedule, i))):
+                        dst.copy_(src)
+                g.graph.replay()
+                if records is not None:
+                    for k, v in g.record.items():
+                        records[k][i].copy_(v)
+            events[1].record()
+            carry = g.carry.clone()
         self.last_run = {"graph": True, "replays": n_intervals,
                          "events": events,
                          "captured_now": captured_now,
@@ -666,7 +687,7 @@ class FusedLoop:
                          "launches_per_replay": dict(g.launches),
                          "capture_s": g.capture_s,
                          "instantiate_s": g.instantiate_s}
-        return g.carry.clone(), records
+        return carry, records
 
     def run(self, table: WorkloadTable, state: SimState,
             wstate: WorkloadState, n_intervals: int,
@@ -699,6 +720,14 @@ class FusedLoop:
         finishes any, so the loop may have advanced another since); it
         becomes :attr:`last_run` again, with ``device_ms_per_interval``.
         """
+        with span("loop.finish"):
+            with span("loop.wait"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            return self._finish(carry, records, n_intervals, run)
+
+    def _finish(self, carry: _Carry, records: dict | None, n_intervals: int,
+                run: dict) -> FusedLoopResult:
         st = dataclasses.replace(carry.state, now=float(carry.state.now),
                                  tick_index=int(carry.state.tick_index))
         self.last_run = run

@@ -29,11 +29,16 @@ the device, each interval one CUDA-graph replay on the card
 
 A :class:`~repro_torch.lab.scenarios.BuiltScenario` lives on the host;
 :func:`stack_scenarios` moves the batch to its device (``device=None``
-means the CUDA card) once.
+means the CUDA card) once.  Untouched elements of one structure (none of
+their engine pieces made) are laid out straight from their staged
+arrays: each table field concatenated once, one table, state and
+workload state made for the whole fleet on its device.  Any other batch
+makes each element's pieces and concatenates them.
 """
 
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import dataclasses
 
@@ -45,14 +50,15 @@ from repro_torch.core.fleet import FleetAgent
 from repro_torch.core.gbdt import DenseForest
 from repro_torch.core.model import DIALModel
 from repro_torch.core.tuner import TunerParams
-from repro_torch.lab.scenarios import (HOST, BuiltScenario, make_schedule)
+from repro_torch.lab.scenarios import (HOST, BuiltScenario, EngineParts,
+                                       make_schedule)
 from repro_torch.pfs.engine_torch import FusedEngine
 from repro_torch.distributed.sharding import shard_elements
 from repro_torch.obs.timers import span
 from repro_torch.pfs.loop_torch import (FusedLoop, FusedLoopResult,
                                         Intervention, decisions_from_trace)
-from repro_torch.pfs.state import (Disturbance, SimParams, SimState, SimTopo,
-                                   init_state)
+from repro_torch.pfs.state import (F64, Disturbance, SimParams, SimState,
+                                   SimTopo, init_state)
 from repro_torch.pfs.stats import probe_all
 from repro_torch.pfs.workloads import WorkloadState, WorkloadTable
 
@@ -81,8 +87,9 @@ class ScenarioBatch:
     ``topo`` is one element's (padded) topology on the host, the shape
     every element shares; ``fleet`` the B elements' block-diagonal
     topology, and ``table`` / ``state`` / ``wstate`` the fleet's, on the
-    batch's device.  ``tables`` keeps each element's table on the host,
-    ``specs`` each element's spec (its disturbance schedule).
+    batch's device.  ``tables`` keeps each element's table on the host
+    (for a batch laid out from staged arrays, each made when first
+    read), ``specs`` each element's spec (its disturbance schedule).
 
     Ragged (padded) batches also carry ``osc_cols``: one int array per
     element listing its *real* interface columns within the padded
@@ -96,7 +103,7 @@ class ScenarioBatch:
     table: WorkloadTable
     state: SimState
     wstate: WorkloadState
-    tables: tuple
+    tables: collections.abc.Sequence
     specs: tuple
     osc_cols: tuple = ()
 
@@ -180,6 +187,59 @@ class ScenarioBatch:
                 "total_mbs": read + write}
 
 
+class _StagedTables(collections.abc.Sequence):
+    """Each element's workload table on the host, made from the
+    element's staged arrays when first read (a mesh run reads them; a
+    run on one device never does)."""
+
+    def __init__(self, built: list):
+        self._built = tuple(built)
+        self._made: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._built)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return tuple(self[j] for j in range(len(self))[i])
+        i = range(len(self))[i]
+        if i not in self._made:
+            self._made[i] = self._built[i].host_table()
+        return self._made[i]
+
+
+def _assemble_staged(built: list, device) -> ScenarioBatch:
+    """Lay untouched elements of one structure out as one fleet on
+    ``device`` from their staged arrays: the fleet's table from each
+    field concatenated once, its fresh state with each element's
+    initial θ over its interfaces, its workload state -- what
+    :func:`_assemble` gives from the elements' pieces.  Nothing runs on
+    the device but copies and fills: a fresh state has delivered no
+    bytes, so every row's base is the 0 that
+    :meth:`~repro_torch.pfs.workloads.WorkloadTable.init_wstate` would
+    sum, and no engine kernel launches outside a run's intervals."""
+    spec0 = built[0].spec
+    topo = SimTopo.dense(spec0.n_clients, spec0.n_osts, HOST)
+    b, n = len(built), topo.n_osc
+    fleet = _fleet_topo(topo, b, np.ones(b * topo.n_osts, dtype=bool),
+                        np.ones(b * topo.n_clients, dtype=bool), device)
+    table = WorkloadTable.from_arrays(
+        WorkloadTable.block_arrays([e.arrays for e in built], n,
+                                   topo.n_clients),
+        n_osc=b * n, n_waves=max(e.n_waves for e in built), device=device)
+    state = init_state(fleet)
+    theta = np.array([[int(x) for x in e.spec.initial_theta] for e in built],
+                     dtype=np.int64)
+    state.window_pages.copy_(torch.from_numpy(np.repeat(theta[:, 0], n)))
+    state.rpcs_in_flight.copy_(torch.from_numpy(np.repeat(theta[:, 1], n)))
+    wstate = WorkloadState(*(torch.zeros(len(table), dtype=F64,
+                                         device=device) for _ in range(2)))
+    return ScenarioBatch(
+        params=built[0].params, topo=topo, fleet=fleet, table=table,
+        state=state, wstate=wstate,
+        tables=_StagedTables(built), specs=tuple(e.spec for e in built))
+
+
 def _assemble(built: list, topo: SimTopo, osc_cols: tuple,
               device) -> ScenarioBatch:
     """Lay same-shaped built scenarios out as one fleet on ``device``."""
@@ -211,6 +271,7 @@ def _assemble(built: list, topo: SimTopo, osc_cols: tuple,
 
 # the structure fields strict stacking compares, in check order -- the
 # refusal message names the first mismatching one with both values
+# (BuiltScenario.shape's order after params)
 _STRUCTURE_FIELDS = ("params", "n_clients", "n_osts", "n_rows", "n_waves",
                      "n_entries")
 
@@ -219,8 +280,7 @@ def structure_key(b: BuiltScenario) -> tuple:
     """The structural signature batch elements must share to stack
     *without padding*: physics constants, topology dimensions and the
     workload table's shape (rows, waves, stripe entries)."""
-    return (b.params, b.topo.n_clients, b.topo.n_osts,
-            len(b.table), b.table.n_waves, b.table.entry_row.shape[0])
+    return (b.params,) + b.shape
 
 
 def _structure_mismatch(built: list[BuiltScenario]):
@@ -249,9 +309,9 @@ def pad_class(b: BuiltScenario) -> tuple:
     an inactive row to contribute exact zeros).  ``params`` rides the
     key because physics cannot be padded away.
     """
-    return (b.params, _p2(b.topo.n_clients), _p2(b.topo.n_osts),
-            _p2(len(b.table) + 1), _p2(b.table.entry_row.shape[0] + 1),
-            _p2(b.table.n_waves))
+    n_clients, n_osts, n_rows, n_waves, n_entries = b.shape
+    return (b.params, _p2(n_clients), _p2(n_osts), _p2(n_rows + 1),
+            _p2(n_entries + 1), _p2(n_waves))
 
 
 def pad_scenario(b: BuiltScenario, cls: tuple) -> BuiltScenario:
@@ -295,8 +355,8 @@ def pad_scenario(b: BuiltScenario, cls: tuple) -> BuiltScenario:
     zeros = torch.zeros(nr - len(b.table), dtype=b.wstate.issued.dtype)
     wstate = WorkloadState(issued=torch.cat([b.wstate.issued, zeros]),
                            done_base=torch.cat([b.wstate.done_base, zeros]))
-    return BuiltScenario(spec=b.spec, params=b.params, topo=topo,
-                         table=table, state=state, wstate=wstate)
+    return BuiltScenario(spec=b.spec, params=b.params,
+                         parts=EngineParts(topo, table, state, wstate))
 
 
 def stack_scenarios(built: list[BuiltScenario], ragged: bool = True,
@@ -304,7 +364,9 @@ def stack_scenarios(built: list[BuiltScenario], ragged: bool = True,
     """Stack built scenarios into one batch on ``device`` (``None``: the
     CUDA card).
 
-    Structurally identical elements stack directly (no padding).
+    Structurally identical elements stack directly (no padding): from
+    their staged arrays in one pass where none is touched (its engine
+    pieces made, perhaps changed), else from their pieces.
     Mismatched structures are padded up to the elementwise-max
     :func:`pad_class` and stacked ragged, unless ``ragged=False``, which
     refuses (the error names the first mismatching structure field and
@@ -328,6 +390,8 @@ def stack_scenarios(built: list[BuiltScenario], ragged: bool = True,
                 f"stack with ragged=False: element {i} has {field}={v} but "
                 f"element 0 has {field}={v0} (drop ragged=False to pad-and-"
                 f"mask mismatched structures into one bucket)")
+        if mm is None and all(b.parts is None for b in built):
+            return _assemble_staged(built, dev)
         osc_cols: tuple = ()
         if mm is not None:
             classes = [pad_class(b) for b in built]

@@ -3,10 +3,12 @@
 The port's copy of the reference's ``repro/lab/scenarios.py`` (numpy
 host code): the same events, validation, schedules, specs, jitter and
 catalog.  A :class:`ScenarioSpec` is a pure-data description of one
-simulated cluster run.  :func:`build` materializes it as the engine's
-pieces on the host (CPU tensors): staging that
-:func:`repro_torch.lab.batch.stack_scenarios` lays out as one fleet and
-moves to its device once.  :func:`make_schedule` compiles the events
+simulated cluster run.  :func:`build` checks it and stages it on the
+host as plain data (its workload table's numpy arrays):
+:func:`repro_torch.lab.batch.stack_scenarios` lays a batch of staged
+elements out as one fleet on its device in one pass.  A
+:class:`BuiltScenario` makes its own engine pieces (CPU tensors) only
+when a caller reads them.  :func:`make_schedule` compiles the events
 into a per-tick :class:`~repro_torch.pfs.state.Disturbance` of numpy
 arrays (a pure function of the absolute tick index, so interval
 boundaries cannot disagree); a run copies it to the device once.
@@ -34,7 +36,9 @@ The registry at the bottom names the paper evaluation setups
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -254,37 +258,117 @@ class ScenarioSpec:
         return [dataclasses.replace(w) for w in self.workloads]
 
 
-@dataclasses.dataclass
-class BuiltScenario:
-    """Engine-level pieces of one spec on the host, ready to stack."""
+# the span of one element's engine pieces made from its staged data
+# (the benchmark's ``materialize_ms_per_interval.lab`` reads it)
+MATERIALIZE_SPAN = "lab.materialize"
 
-    spec: ScenarioSpec
-    params: SimParams
+
+@functools.lru_cache(maxsize=64)
+def _host_topo(n_clients: int, n_osts: int) -> SimTopo:
+    """A dense host topology of this shape, shared read-only by the
+    checks and layouts of every element of the shape (its sizes and
+    interface ids)."""
+    return SimTopo.dense(n_clients, n_osts, HOST)
+
+
+class EngineParts(NamedTuple):
+    """One element's engine pieces on the host."""
+
     topo: SimTopo
     table: WorkloadTable
     state: SimState
     wstate: WorkloadState
 
+
+@dataclasses.dataclass
+class BuiltScenario:
+    """One checked spec on the host, ready to stack.
+
+    Staged as plain data: ``arrays``, its workload table's numpy arrays
+    (what :meth:`~repro_torch.pfs.workloads.WorkloadTable.from_arrays`
+    takes), and ``n_waves``; the topology's sizes and the initial θ are
+    the spec's.  ``topo``, ``table``, ``state`` and ``wstate``, the
+    engine's pieces as CPU tensors, are made together the first time
+    any of them is read (one :data:`MATERIALIZE_SPAN` span) and kept in
+    ``parts``.  An element whose ``parts`` is ``None`` is untouched:
+    :func:`~repro_torch.lab.batch.stack_scenarios` lays untouched
+    elements out from their arrays and never makes their pieces.
+    """
+
+    spec: ScenarioSpec
+    params: SimParams
+    arrays: dict | None = None
+    n_waves: int = 1
+    parts: EngineParts | None = None
+
+    @property
+    def topo(self) -> SimTopo:
+        return self._made().topo
+
+    @property
+    def table(self) -> WorkloadTable:
+        return self._made().table
+
+    @property
+    def state(self) -> SimState:
+        return self._made().state
+
+    @property
+    def wstate(self) -> WorkloadState:
+        return self._made().wstate
+
+    def _made(self) -> EngineParts:
+        if self.parts is None:
+            with span(MATERIALIZE_SPAN):
+                spec = self.spec
+                topo = SimTopo.dense(spec.n_clients, spec.n_osts, HOST)
+                state = init_state(topo)
+                w, f = spec.initial_theta
+                state.window_pages[:] = int(w)
+                state.rpcs_in_flight[:] = int(f)
+                table = self.host_table()
+                self.parts = EngineParts(topo, table, state,
+                                         table.init_wstate(state))
+        return self.parts
+
+    def host_table(self) -> WorkloadTable:
+        """A new workload table on the host from the staged arrays (a
+        copy of them): the table that :attr:`table` first holds."""
+        return WorkloadTable.from_arrays(
+            {f: a.copy() for f, a in self.arrays.items()},
+            n_osc=self.spec.n_clients * self.spec.n_osts,
+            n_waves=self.n_waves, device=HOST,
+            names=tuple(w.name for w in self.spec.workloads))
+
+    @property
+    def shape(self) -> tuple:
+        """``(n_clients, n_osts, rows, waves, stripe entries)``: read from
+        the pieces once they are made, else from the staged data."""
+        if self.parts is not None:
+            topo, table = self.parts.topo, self.parts.table
+            return (topo.n_clients, topo.n_osts, len(table), table.n_waves,
+                    table.entry_row.shape[0])
+        return (self.spec.n_clients, self.spec.n_osts,
+                len(self.arrays["op"]), self.n_waves,
+                len(self.arrays["entry_row"]))
+
     def schedule(self, t0_tick: int, n_ticks: int) -> Disturbance:
-        return make_schedule(self.spec.events, self.topo, self.params,
-                             t0_tick, n_ticks)
+        topo = (self.parts.topo if self.parts is not None
+                else _host_topo(self.spec.n_clients, self.spec.n_osts))
+        return make_schedule(self.spec.events, topo, self.params, t0_tick,
+                             n_ticks)
 
 
 def build(spec: ScenarioSpec, params: SimParams | None = None) -> BuiltScenario:
-    """Materialize a spec on the host: topology, frozen workload table,
-    fresh state."""
+    """Check a spec against its topology and stage it on the host: its
+    workload table's arrays, the reference's wave partition."""
     with span("lab.build"):
-        params = params or SimParams()
-        topo = SimTopo.dense(spec.n_clients, spec.n_osts, HOST)
+        topo = _host_topo(spec.n_clients, spec.n_osts)
         validate_events(spec.events, topo)
-        state = init_state(topo)
-        w, f = spec.initial_theta
-        state.window_pages[:] = int(w)
-        state.rpcs_in_flight[:] = int(f)
-        table = WorkloadTable.from_workloads(spec.make_workloads(), topo)
-        wstate = table.init_wstate(state)
-        return BuiltScenario(spec=spec, params=params, topo=topo, table=table,
-                             state=state, wstate=wstate)
+        arrays = WorkloadTable.arrays_from_workloads(spec.workloads, topo)
+        return BuiltScenario(spec=spec, params=params or SimParams(),
+                             arrays=arrays,
+                             n_waves=WorkloadTable.n_waves_of(arrays))
 
 
 def _jitter_event(ev: DisturbanceEvent, rng) -> DisturbanceEvent:

@@ -205,13 +205,16 @@ class WorkloadTable:
                                else getattr(w, f) for w in rows], dtype=float)
         return out
 
+    @staticmethod
+    def n_waves_of(arrays: dict) -> int:
+        """The number of waves of a table's arrays (1 for no rows)."""
+        return int(arrays["wave"].max()) + 1 if len(arrays["wave"]) else 1
+
     @classmethod
     def from_workloads(cls, workloads, topo: SimTopo) -> "WorkloadTable":
         arrays = cls.arrays_from_workloads(workloads, topo)
-        r = len(arrays["op"])
         return cls.from_arrays(
-            arrays, n_osc=topo.n_osc,
-            n_waves=int(arrays["wave"].max()) + 1 if r else 1,
+            arrays, n_osc=topo.n_osc, n_waves=cls.n_waves_of(arrays),
             device=topo.device, names=tuple(w.name for w in workloads))
 
     @classmethod
@@ -285,30 +288,41 @@ class WorkloadTable:
                                          n_waves=n_waves, device=self.device,
                                          names=self.names)
 
-    @classmethod
-    def block(cls, tables: list, n_clients: int, device) -> "WorkloadTable":
-        """B tables of one shape (``n_osc`` interfaces and ``n_clients``
-        clients each) as one table over the block-diagonal fleet: element
-        b's rows become ``b * R + r``, its stripe entries ``b * E + e``,
-        its interfaces ``b * n_osc + osc`` and its clients ``b *
-        n_clients + c``.  Waves stay per element: rows of different
-        elements never share an interface, so wave k of the whole is the
-        union of the elements' wave k."""
-        t0 = tables[0]
-        n, r = t0.n_osc, len(t0)
-        if any(t.n_osc != n or len(t) != r for t in tables):
+    @staticmethod
+    def block_arrays(parts: list, n_osc: int, n_clients: int) -> dict:
+        """B tables' host arrays (each what :meth:`arrays` gives), each
+        table over ``n_osc`` interfaces and ``n_clients`` clients with
+        one row count, as one table's arrays over the block-diagonal
+        fleet: element b's rows become ``b * R + r``, its stripe entries
+        ``b * E + e``, its interfaces ``b * n_osc + osc`` and its clients
+        ``b * n_clients + c``."""
+        r = len(parts[0]["op"])
+        if any(len(p["op"]) != r for p in parts):
             raise ValueError("WorkloadTable.block: tables of different "
                              "shapes")
-        parts = [t.arrays() for t in tables]
         out = {f: np.concatenate([p[f] for p in parts])
                for f in _TABLE_FIELDS}
         for f, step in (("client", n_clients), ("entry_row", r),
-                        ("entry_osc", n)):
+                        ("entry_osc", n_osc)):
             counts = [len(p[f]) for p in parts]
             out[f] = out[f] + np.repeat(np.arange(len(parts)) * step, counts)
-        return cls.from_arrays(out, n_osc=len(tables) * n,
-                               n_waves=max(t.n_waves for t in tables),
-                               device=device)
+        return out
+
+    @classmethod
+    def block(cls, tables: list, n_clients: int, device) -> "WorkloadTable":
+        """B tables of one shape (``n_osc`` interfaces and ``n_clients``
+        clients each) as one table over the block-diagonal fleet
+        (:meth:`block_arrays`).  Waves stay per element: rows of
+        different elements never share an interface, so wave k of the
+        whole is the union of the elements' wave k."""
+        n = tables[0].n_osc
+        if any(t.n_osc != n for t in tables):
+            raise ValueError("WorkloadTable.block: tables of different "
+                             "shapes")
+        return cls.from_arrays(
+            cls.block_arrays([t.arrays() for t in tables], n, n_clients),
+            n_osc=len(tables) * n, n_waves=max(t.n_waves for t in tables),
+            device=device)
 
     def init_wstate(self, state: SimState) -> WorkloadState:
         """Bind the table to a state: zero issued bytes and each row's

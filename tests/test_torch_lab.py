@@ -276,6 +276,106 @@ def test_ragged_stack_equals_reference_layout(reference):
     assert batch.pad_stats() == json.loads(str(ref["layout/pad_stats"]))
 
 
+def _touch(built):
+    """Make each element's engine pieces, as a caller reading them does."""
+    for b in built:
+        b.state
+    return built
+
+
+def _mutate_one(built):
+    """Element 3's pieces read and changed before stacking."""
+    built[3].state.window_pages[:] = 1024
+    built[3].wstate.issued[:] = 7.0
+    return built
+
+
+# (specs, ragged, what happens to the elements before stacking)
+STAGED_CASES = {
+    "variants64": (lambda: S.variants(S.get_scenario("noisy_neighbor"), 64,
+                                      seed=5), False, None),
+    "evaluate_arms": (lambda: [dataclasses.replace(
+        S.get_scenario("filebench_mix"), initial_theta=th)
+        for th in ((64, 2), (256, 8), (1024, 32), (16, 1), (256, 8))],
+        True, None),
+    "mutated": (lambda: S.variants(S.get_scenario("noisy_neighbor"), 6,
+                                   seed=2), False, _mutate_one),
+    "ragged_catalog": (lambda: [S.get_scenario(n) for n in MIXED], True,
+                       None),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGED_CASES))
+def test_staged_stack_equals_materialized(case, monkeypatch):
+    """A batch stacked from the elements as built (untouched ones laid
+    out from their arrays in one pass) equals the batch of the same
+    elements with every engine piece made first (each element's tensors
+    concatenated), bit for bit: the table's key and arrays, every state
+    field, the workload state, the fleet's wiring and masks, each
+    element's table.  A touched and changed element stacks with its
+    change; ragged stacks make every element's pieces either way.  The
+    one-pass assembly reduces nothing (no engine kernel outside a run's
+    intervals)."""
+    from repro_torch.pfs import workloads
+
+    make, ragged, before = STAGED_CASES[case]
+    prep = before or (lambda built: built)
+    got_built = prep([S.build(s) for s in make()])
+    want_built = prep(_touch([S.build(s) for s in make()]))
+    touched = [i for i, b in enumerate(got_built) if b.parts is not None]
+    assert touched == ([3] if before is _mutate_one else [])
+    sums, real_sum = [], workloads.segment_sum
+    monkeypatch.setattr(workloads, "segment_sum",
+                        lambda v, m: sums.append(m) or real_sum(v, m))
+    got = B.stack_scenarios(got_built, ragged=ragged, device="cpu")
+    monkeypatch.undo()
+    want = B.stack_scenarios(want_built, ragged=ragged, device="cpu")
+    staged = case in ("variants64", "evaluate_arms")
+    assert all((b.parts is None) == staged for b in got_built), case
+    assert not sums if staged else len(sums) == len(got) - len(touched)
+    assert got.table.key == want.table.key
+    assert got.table.n_waves == want.table.n_waves
+    ga, wa = got.table.arrays(), want.table.arrays()
+    for f in TABLE_FIELDS:
+        assert ga[f].dtype == wa[f].dtype, f
+        np.testing.assert_array_equal(ga[f], wa[f], err_msg=f)
+    for f in dataclasses.fields(want.state):
+        a, b = getattr(got.state, f.name), getattr(want.state, f.name)
+        if torch.is_tensor(b):
+            assert a.dtype == b.dtype and torch.equal(a, b), f.name
+        else:
+            assert type(a) is type(b) and a == b, f.name
+    assert torch.equal(got.wstate.issued, want.wstate.issued)
+    assert torch.equal(got.wstate.done_base, want.wstate.done_base)
+    for t in (got.fleet, want.fleet):
+        assert t.n_clients == want.fleet.n_clients
+        assert t.n_osts == want.fleet.n_osts
+    for f in ("osc_client", "osc_ost"):
+        assert torch.equal(getattr(got.fleet, f), getattr(want.fleet, f)), f
+    for f in ("ost_valid_mask", "client_valid_mask", "osc_valid"):
+        assert torch.equal(getattr(got.fleet, f)(),
+                           getattr(want.fleet, f)()), f
+    assert (got.topo.n_clients, got.topo.n_osts) == \
+        (want.topo.n_clients, want.topo.n_osts)
+    assert len(got.tables) == len(want.tables) == len(got)
+    for b in range(len(got)):
+        ga, wa = got.tables[b].arrays(), want.tables[b].arrays()
+        for f in TABLE_FIELDS:
+            np.testing.assert_array_equal(ga[f], wa[f], err_msg=f"{b} {f}")
+        assert got.tables[b].key == want.tables[b].key
+        np.testing.assert_array_equal(got.element_cols(b),
+                                      want.element_cols(b))
+    # the mesh path's table, blocked from the elements' tables
+    assert B.WorkloadTable.block(list(got.tables), got.topo.n_clients,
+                                 "cpu").key == got.table.key
+    if before is _mutate_one:
+        assert (got.stacked("window_pages")[3] == 1024).all()
+        assert (got.stacked("window_pages")[2] == 256).all()
+        n_rows = len(got.tables[0])
+        issued = got.wstate.issued.reshape(len(got), n_rows)
+        assert (issued[3] == 7.0).all() and not issued[2].any()
+
+
 # --------------------------------------------------------------------- #
 # the port's own runs
 # --------------------------------------------------------------------- #

@@ -5,8 +5,10 @@ The recorder: nesting sets ``parent`` and ``root``, the ring stays
 bounded, ``spans(lo, hi)`` selects by window, ``PhaseTimers`` records
 through it, and a span put on the profiler's clock with
 ``profiler_offset_ns`` lands where ``torch.profiler`` puts a
-``record_function`` range around the same block.  The lab path: ``build`` / ``stack_scenarios`` record
-``lab.build`` / ``lab.stack``; a fused ``run_batch`` records the tree
+``record_function`` range around the same block.  The lab path:
+``build`` / ``stack_scenarios`` record ``lab.build`` / ``lab.stack``,
+an element whose engine pieces are made ``lab.materialize`` (none for
+untouched variants); a fused ``run_batch`` records the tree
 ``lab.run_batch`` -> ``lab.schedule``, ``loop.prepare``,
 ``loop.intervals``, ``loop.finish`` -> ``loop.wait``, once per shard
 in the mesh's order on a mesh; on the card a capture that replaces
@@ -224,6 +226,32 @@ def test_build_and_stack_record_their_spans():
     assert len(got["lab.build"]) == 3 and len(got["lab.stack"]) == 1
     assert all(s[4] is None for v in got.values() for s in v)
     assert len(batch) == 3
+
+
+def test_only_touched_elements_record_materialize():
+    """Untouched variants stack from their arrays: no ``lab.materialize``.
+    Reading one element's ``state`` makes its pieces (one span, none on
+    a second read); a stack that holds it makes every other element's,
+    one span each under ``lab.stack``."""
+    specs = S.variants(S.get_scenario("noisy_neighbor"), 3, seed=1)
+    built = [S.build(s) for s in specs]
+    t0 = time.perf_counter_ns()
+    B.stack_scenarios(built, ragged=False, device="cpu")
+    assert sorted(_since(t0)) == ["lab.stack"]
+    t1 = time.perf_counter_ns()
+    built[1].state.window_pages[:] = 64
+    built[1].table
+    got = _since(t1)
+    assert sorted(got) == ["lab.materialize"]
+    assert len(got["lab.materialize"]) == 1
+    assert got["lab.materialize"][0][4] is None
+    t2 = time.perf_counter_ns()
+    batch = B.stack_scenarios(built, ragged=False, device="cpu")
+    got = _since(t2)
+    assert len(got["lab.materialize"]) == 2
+    stack_id = got["lab.stack"][0][3]
+    assert all(s[4] == stack_id for s in got["lab.materialize"])
+    assert (batch.stacked("window_pages")[1] == 64).all()
 
 
 def _children(t0: int, root_name: str) -> tuple:
